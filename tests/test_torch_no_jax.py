@@ -1,0 +1,52 @@
+"""The PyTorch port must run where jax is not installed: importing every
+``tiflash_tpu_torch`` module and ``chip_smoke``'s helpers must pull in
+neither ``jax`` nor the JAX package ``tiflash_tpu``.  Checked in a fresh
+interpreter, since this test process has both loaded."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+PROBE = r"""
+import importlib, pkgutil, sys
+import tiflash_tpu_torch
+names = ["tiflash_tpu_torch"]
+for m in pkgutil.walk_packages(tiflash_tpu_torch.__path__, "tiflash_tpu_torch."):
+    names.append(m.name)
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+assert callable(chip_smoke.main) and callable(chip_smoke.numpy_q1)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "tiflash_tpu."))
+             or m == "tiflash_tpu")
+print(len(names), "modules")
+print("BAD", bad)
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-1] == "BAD []", proc.stdout
+    assert int(lines[0].split()[0]) >= 20, proc.stdout
+
+
+def test_port_sources_name_no_jax():
+    """No source line of the port imports jax or the JAX package."""
+    offenders = []
+    for path in list((ROOT / "tiflash_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            s = line.strip()
+            if s.startswith(("import ", "from ")) and (
+                    " jax" in s or "jaxlib" in s or "tiflash_tpu " in s
+                    or "tiflash_tpu." in s):
+                offenders.append(f"{path.relative_to(ROOT)}:{i}: {s}")
+    assert not offenders, offenders
