@@ -2,9 +2,11 @@
 against the JAX package's on the same blocks (tolerance zero).
 
 Covers the masked sub-method (key domains <= 64), the segment sub-method
-(65..4096), the keyless method, NULL keys and arguments, dead rows, the
--If filter, and both wide-decimal strategies of ``_wide_rewrite``
-(narrow-stored when stats bound the sum, base-10^9 digits otherwise).
+(65..4096), the keyless method, the sort method (keys without a static
+domain: NULL keys, ties, a ``num_slots`` overflow), NULL keys and
+arguments, dead rows, the -If filter, and both wide-decimal strategies of
+``_wide_rewrite`` (narrow-stored when stats bound the sum, base-10^9
+digits otherwise).
 """
 
 import dataclasses
@@ -98,9 +100,60 @@ def test_everything_filtered_out():
     _compare(jb, tb, [], AGGS)
 
 
+def _sort_block(seed, n=1500):
+    """Int keys without a static domain: ``y`` with many ties, ``z``
+    nullable (and nonzero payload under its NULLs), plus the aggregate
+    arguments of ``_block``."""
+    jb, _ = _block(seed, 30)
+    rng = np.random.default_rng(seed + 1)
+    z_valid = rng.random(N) > 0.2
+    jb = jb.with_column("ky", column_from_numpy(rng.integers(0, 12, N), INT64))
+    jb = jb.with_column("kz", column_from_numpy(rng.integers(-3, 4, N),
+                                                INT64.with_nullable(True),
+                                                validity=z_valid))
+    return jb, blocks_from_numpy(export_blocks({"t": jb}), "cpu")["t"]
+
+
+@pytest.mark.parametrize("keys,num_slots", [
+    (["ky"], None),              # ties: 12 groups
+    (["kz", "ky"], None),        # NULL keys group together, first
+    (["g", "kz"], None),         # a string key beside a NULL-able int key
+    (["kz", "ky"], 40),          # fewer slots than groups: overflow
+], ids=["ties", "null_keys", "string_and_int", "overflow"])
+def test_sort_method_matches_reference(keys, num_slots):
+    import jax
+
+    from tiflash_tpu_torch.ops import aggregate as TA
+
+    jb, tb = _sort_block(51)
+    aggs = AGGS
+    j = jax.jit(lambda b: (lambda r: (r.block, r.num_groups, r.overflow))(
+        j_agg(b, keys, [JAgg(*a) for a in aggs], num_slots)))(jb)
+    calls = []
+    real = TA.aggregate_sort
+    TA.aggregate_sort = lambda *a: calls.append(a[-1]) or real(*a)
+    try:
+        t = t_agg(tb, keys, [TAgg(*a) for a in aggs], num_slots)
+    finally:
+        TA.aggregate_sort = real
+    assert calls == [num_slots or N]
+    assert t.block.names == j[0].names
+    assert [repr(c.dtype) for c in t.block.columns] == \
+        [repr(c.dtype) for c in j[0].columns]
+    assert t.block.to_pylists() == j[0].to_pylists()
+    assert int(t.num_groups) == int(j[1])
+    assert int(t.overflow) == int(j[2])
+    assert (int(t.overflow) > 0) == (num_slots is not None)
+
+
 def test_unported_aggregates_raise():
+    import dataclasses as dc
+
     _, tb = _block(1, 4)
     with pytest.raises(NotImplementedError):
         t_agg(tb, ["g"], [TAgg("min", "y", "m")])
     with pytest.raises(NotImplementedError):
-        t_agg(tb, ["y"], [TAgg("sum", "y", "s")])
+        t_agg(tb, ["y"], [TAgg("count_distinct", "x", "d")])
+    # keys the block is clustered on take the stream method (Q3 slice)
+    with pytest.raises(NotImplementedError, match="stream"):
+        t_agg(dc.replace(tb, clustered_by=("y",)), ["y"], [TAgg("sum", "y", "s")])

@@ -20,6 +20,9 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 assert callable(chip_smoke.main) and callable(chip_smoke.numpy_q1)
+assert callable(chip_smoke.numpy_q7) and callable(chip_smoke.check_direct_agg)
+for m in ("ops.join", "ops.merge", "ops.cuda.direct_agg"):
+    assert "tiflash_tpu_torch." + m in names, m
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "tiflash_tpu."))
              or m == "tiflash_tpu")
@@ -36,7 +39,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
     assert lines[-1] == "BAD []", proc.stdout
-    assert int(lines[0].split()[0]) >= 20, proc.stdout
+    assert int(lines[0].split()[0]) >= 31, proc.stdout
 
 
 def test_port_sources_name_no_jax():

@@ -1,12 +1,13 @@
-"""TPC-H Q1 and Q6 plans (counterpart of ``tiflash_tpu/bench/tpch_queries.py``).
+"""TPC-H Q1, Q6 and Q7 plans (counterpart of
+``tiflash_tpu/bench/tpch_queries.py``).
 
-The same plan trees as the reference's; the other queries come with
-later slices of the port.
+The same plan trees as the reference's, plus ``q7_nation_pairs_plan``;
+the other queries come with later slices of the port.
 """
 
 from __future__ import annotations
 
-from ..expr.nodes import col, lit
+from ..expr.nodes import call, col, lit
 from ..ops.aggregate import AggDesc
 from ..ops.sort import SortKey
 from ..plan import nodes as P
@@ -70,4 +71,84 @@ def q6_plan() -> P.PlanNode:
     return P.Aggregation(keys=[], aggs=[AggDesc("sum", "rev", "revenue")], child=proj)
 
 
-__all__ = ["q1_plan", "q6_plan"]
+def _q7_join_graph() -> P.PlanNode:
+    """lineitem (shipped 1995-1996) joined to supplier -> nation and to
+    orders -> customer -> nation, all unique-build inner joins."""
+    supp_n = P.Join(
+        kind="inner", probe_keys=["s_nationkey"], build_keys=["n_nationkey"],
+        probe=P.TableScan("supplier", columns=["s_suppkey", "s_nationkey"]),
+        build=P.Projection({"n_nationkey": col("n_nationkey"),
+                            "supp_nation": col("n_name")}, P.TableScan("nation")),
+        unique_build=True,
+    )
+    cust_n = P.Join(
+        kind="inner", probe_keys=["c_nationkey"], build_keys=["n_nationkey2"],
+        probe=P.TableScan("customer", columns=["c_custkey", "c_nationkey"]),
+        build=P.Projection({"n_nationkey2": col("n_nationkey"),
+                            "cust_nation": col("n_name")}, P.TableScan("nation")),
+        unique_build=True,
+    )
+    orders_c = P.Join(
+        kind="inner", probe_keys=["o_custkey"], build_keys=["c_custkey"],
+        probe=P.TableScan("orders", columns=["o_orderkey", "o_custkey"]),
+        build=cust_n, unique_build=True,
+    )
+    line = P.Selection(
+        (col("l_shipdate") >= "1995-01-01") & (col("l_shipdate") <= "1996-12-31"),
+        P.TableScan("lineitem", columns=[
+            "l_orderkey", "l_suppkey", "l_shipdate", "l_extendedprice", "l_discount"]),
+    )
+    ls = P.Join(kind="inner", probe_keys=["l_suppkey"], build_keys=["s_suppkey"],
+                probe=line, build=supp_n, unique_build=True)
+    return P.Join(kind="inner", probe_keys=["l_orderkey"], build_keys=["o_orderkey"],
+                  probe=ls, build=orders_c, unique_build=True)
+
+
+def q7_plan() -> P.PlanNode:
+    """Volume shipping: 4-join chain, nation-pair filter, group by
+    (supp_nation, cust_nation, year)."""
+    pair = P.Selection(
+        ((col("supp_nation") == "FRANCE") & (col("cust_nation") == "GERMANY"))
+        | ((col("supp_nation") == "GERMANY") & (col("cust_nation") == "FRANCE")),
+        _q7_join_graph(),
+    )
+    proj = P.Projection(
+        {"supp_nation": col("supp_nation"), "cust_nation": col("cust_nation"),
+         "l_year": call("year", col("l_shipdate")),
+         "volume": col("l_extendedprice") * (lit(1.0) - col("l_discount"))},
+        pair,
+    )
+    agg = P.Aggregation(
+        keys=["supp_nation", "cust_nation", "l_year"],
+        aggs=[AggDesc("sum", "volume", "revenue")], child=proj,
+    )
+    return P.Sort(
+        [SortKey("supp_nation"), SortKey("cust_nation"), SortKey("l_year")], agg
+    )
+
+
+def q7_nation_pairs_plan() -> P.PlanNode:
+    """Q7's join graph reported over all nation pairs: the same joins,
+    shipdate Selection and ``volume`` projection, without the
+    FRANCE/GERMANY Selection and without ``l_year``; revenue, average
+    volume and line count per (supp_nation, cust_nation).
+
+    It exists because its key domain reaches the ``direct_agg`` kernel:
+    each nation key is nullable after the join, so it packs into 26
+    slots, and the two give 676, inside the kernel branch's 65..4096."""
+    proj = P.Projection(
+        {"supp_nation": col("supp_nation"), "cust_nation": col("cust_nation"),
+         "volume": col("l_extendedprice") * (lit(1.0) - col("l_discount"))},
+        _q7_join_graph(),
+    )
+    agg = P.Aggregation(
+        keys=["supp_nation", "cust_nation"],
+        aggs=[AggDesc("sum", "volume", "revenue"),
+              AggDesc("avg", "volume", "avg_volume"),
+              AggDesc("count", None, "n_lines")],
+        child=proj,
+    )
+    return P.Sort([SortKey("supp_nation"), SortKey("cust_nation")], agg)
+
+
+__all__ = ["q1_plan", "q6_plan", "q7_plan", "q7_nation_pairs_plan"]

@@ -182,6 +182,11 @@ DURATION = DataType(TypeKind.DURATION)
 STRING = DataType(TypeKind.STRING)
 
 
+# MySQL's ZERO date ('0000-00-00') as stored days since the epoch: a
+# sentinel far below any civil date the engine produces
+ZERO_DATE_DAYS = -3_650_000
+
+
 def Decimal(precision: int, scale: int, nullable: bool = False) -> DataType:
     if precision > 65:
         raise NotImplementedError(
@@ -213,5 +218,5 @@ __all__ = [
     "TypeKind", "DataType", "Decimal",
     "INT8", "INT16", "INT32", "INT64", "UINT8", "UINT32", "UINT64",
     "FLOAT32", "FLOAT64", "BOOL", "DATE", "DATETIME", "DURATION", "STRING",
-    "common_numeric_type",
+    "common_numeric_type", "ZERO_DATE_DAYS",
 ]

@@ -8,7 +8,8 @@ Counterpart of ``tiflash_tpu/expr/functions.py``.  Ported here:
 - the six comparisons, ``and``/``or``/``not`` (three-valued logic);
 - ``propagate_stats``, which keeps expression columns (revenue =
   extendedprice * (1 - discount)) on the narrow-stored sum path;
-- ``_div_round_half_up`` (TiDB decimal rounding, used by avg).
+- ``_div_round_half_up`` (TiDB decimal rounding, used by avg);
+- ``year`` over DATE and DATETIME (TPC-H Q7's ``year(l_shipdate)``).
 
 Every other function, string operands in arithmetic and wide-decimal
 operands raise ``NotImplementedError``: they belong to the functions
@@ -24,6 +25,7 @@ import torch
 
 from ..core.block import Column
 from ..core.dtypes import (
+    ZERO_DATE_DAYS,
     DataType,
     Decimal,
     TypeKind,
@@ -359,6 +361,59 @@ def _not():
         return Column(~a.data.to(torch.bool), a.validity, out)
 
     return infer, evaluate
+
+
+# ---------------------------------------------------------------------------
+# date/time extraction (epoch-int representation)
+# ---------------------------------------------------------------------------
+
+def _fdiv(a: torch.Tensor, b: int) -> torch.Tensor:
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _civil_from_days(days: torch.Tensor):
+    """Epoch days -> (year, month, day): Howard Hinnant's algorithm,
+    branch-free and exact over the full int32 range."""
+    z = days.to(torch.int64) + 719468
+    era = _fdiv(z, 146097)
+    doe = z - era * 146097
+    yoe = _fdiv(doe - _fdiv(doe, 1460) + _fdiv(doe, 36524) - _fdiv(doe, 146096), 365)
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + _fdiv(yoe, 4) - _fdiv(yoe, 100))
+    mp = _fdiv(5 * doy + 2, 153)
+    d = doy - _fdiv(153 * mp + 2, 5) + 1
+    m = mp + torch.where(mp < 10, 3, -9)
+    y = y + (m <= 2).to(torch.int64)
+    return y, m, d
+
+
+def _date_days(col: Column) -> torch.Tensor:
+    if col.dtype.kind is TypeKind.DATE:
+        return col.data.to(torch.int64)
+    if col.dtype.kind is TypeKind.DATETIME:
+        return _fdiv(col.data, 86_400_000_000)
+    raise TypeError(f"expected date/datetime, got {col.dtype}")
+
+
+def _register_date_part(name: str, part: int):
+    def factory():
+        def infer(ts):
+            return DataType(TypeKind.INT64, ts[0].nullable)
+
+        def evaluate(cols, out):
+            (a,) = cols
+            days = _date_days(a)
+            data = _civil_from_days(days)[part]
+            # YEAR/MONTH/DAY of the ZERO date are 0, not NULL (MySQL)
+            data = torch.where(days == ZERO_DATE_DAYS, 0, data)
+            return Column(data.to(torch.int64), a.validity, out)
+
+        return infer, evaluate
+
+    register(name)(factory)
+
+
+_register_date_part("year", 0)
 
 
 __all__ = ["get_function", "propagate_stats",

@@ -1,4 +1,4 @@
-"""Aggregation: the direct-indexed and scalar methods.
+"""Aggregation: the keyless, direct-indexed and sort methods.
 
 Counterpart of ``tiflash_tpu/ops/aggregate.py``.  Ported here:
 
@@ -8,14 +8,16 @@ Counterpart of ``tiflash_tpu/ops/aggregate.py``.  Ported here:
   narrow-stored when stats prove int64 is exact, else by base-10^9 digit
   decomposition;
 - key packing for small static key domains (``pack_keys_direct``);
-- ``hash_aggregate`` dispatch, limited to the keyless method
-  (``aggregate_scalar``) and the direct method (``aggregate_direct``) for
-  packed key domains up to ``DIRECT_DOMAIN_LIMIT``, with its masked
-  sub-method (domains <= 64) and its segment sub-method.
+- ``hash_aggregate`` dispatch to the keyless method (``aggregate_scalar``),
+  the direct method (``aggregate_direct``) for packed key domains up to
+  ``DIRECT_DOMAIN_LIMIT``, and the sort method (``aggregate_sort``) for
+  keys without a static domain.  The direct method has its masked
+  sub-method (domains <= 64), its ``direct_agg`` kernel branch
+  (``ops/cuda/direct_agg.py``) and its segment sub-method.
 
-Supported aggregates are sum, count and avg.  The sort and stream
-methods (general keys), the other aggregate functions and the
-``direct_agg`` kernel come in later slices of the port.
+Supported aggregates are sum, count and avg.  The stream method (keys the
+block is clustered on) comes with the Q3 slice of the port; the other
+aggregate functions with the functions slice.
 """
 
 from __future__ import annotations
@@ -88,7 +90,8 @@ def _check_supported(aggs: Sequence[AggDesc]) -> None:
         if a.func not in _SUPPORTED or a.distinct:
             raise NotImplementedError(
                 f"aggregate {a.func}{' distinct' if a.distinct else ''} is "
-                "not ported yet: it comes with a later slice of the port")
+                "not ported yet: count_distinct, quantile, group_concat and "
+                "the rest come with the functions slice of the port")
 
 
 # ---------------------------------------------------------------------------
@@ -403,30 +406,107 @@ def _accumulate_masked(
     return out, occupied
 
 
+def _kernel_eligible(block: Block, aggs: Sequence[AggDesc]) -> bool:
+    """The direct_agg kernel covers sum/count/avg over fixed-point
+    (int/decimal/bool/date) arguments without an -If filter."""
+    for a in aggs:
+        if a.func not in ("sum", "count", "avg"):
+            return False
+        if a.filter_col is not None:
+            return False
+        if a.arg is not None and block[a.arg].dtype.is_float:
+            return False
+    return True
+
+
+def _accumulate_direct_kernel(
+    aggs: Sequence[AggDesc],
+    block: Block,
+    slot_ids: torch.Tensor,
+    live: torch.Tensor,
+    domain: int,
+) -> Tuple[List[Tuple[str, Column]], torch.Tensor]:
+    """Kernel-backed accumulation with the contract of ``_accumulate``:
+    one ``direct_sums`` call over the deduplicated sum/avg arguments plus
+    0/1 columns for count(x) of arguments not summed."""
+    from .cuda.direct_agg import direct_sums
+
+    arg_order: List[str] = []
+    for a in aggs:
+        if a.func in ("sum", "avg") and a.arg not in arg_order:
+            arg_order.append(a.arg)
+    values: List[torch.Tensor] = []
+    masks: List[Optional[torch.Tensor]] = []
+    for name in arg_order:
+        c = block[name]
+        values.append(c.data.to(torch.int64))
+        masks.append(c.validity)
+    count_args: List[str] = []
+    for a in aggs:
+        if (a.func == "count" and a.arg is not None and a.arg not in arg_order
+                and a.arg not in count_args):
+            count_args.append(a.arg)
+    for name in count_args:
+        values.append((block[name].valid_mask() & live).to(torch.int64))
+        masks.append(None)
+
+    sums, live_counts, nn_counts = direct_sums(slot_ids, values, masks, live,
+                                               domain)
+
+    col_of = {name: i for i, name in enumerate(arg_order)}
+    extra_of = {name: len(arg_order) + i for i, name in enumerate(count_args)}
+    out: List[Tuple[str, Column]] = []
+    for a in aggs:
+        if a.func == "count":
+            if a.arg is None:
+                cnt = live_counts
+            elif a.arg in col_of:
+                cnt = nn_counts[col_of[a.arg]]
+            else:
+                cnt = sums[:, extra_of[a.arg]]
+            out.append((a.name, Column(cnt, None, INT64)))
+            continue
+        idx = col_of[a.arg]
+        out.append((a.name, _finish(a, block[a.arg], sums[:, idx], nn_counts[idx])))
+    return out, live_counts > 0
+
+
 def aggregate_direct(
     block: Block,
     keys: Sequence[str],
     aggs: Sequence[AggDesc],
     slots_domain: Tuple[torch.Tensor, int],
+    use_kernel: Optional[bool] = None,
 ) -> AggregateResult:
-    """Dense small-domain aggregation (direct-indexed method): the masked
-    sub-method up to MASKED_DOMAIN_LIMIT slots, the segment sub-method
-    above."""
+    """Dense small-domain aggregation (direct-indexed method).
+
+    Sub-methods: with ``use_kernel=None``, the masked one up to
+    MASKED_DOMAIN_LIMIT slots, then the ``direct_agg`` kernel branch when
+    ``_kernel_eligible`` holds, else the segment one.  ``use_kernel``
+    True or False forces the kernel branch or the segment sub-method.
+    The kernel branch runs the CUDA kernel on CUDA tensors and its plain
+    torch version on CPU tensors (``ops/cuda/direct_agg.py``)."""
     slot_ids, domain = slots_domain
     live = block.sel_mask()
     dev = live.device
-    if domain <= MASKED_DOMAIN_LIMIT:
+    if use_kernel is None and domain <= MASKED_DOMAIN_LIMIT:
         acc, occupied = _accumulate_masked(aggs, block, slot_ids, live, domain)
     else:
-        # Domains of 65..4096 take the segment sub-method until the PR
-        # that ports the direct_agg kernel (ROADMAP.md, "Next" item 4)
-        # adds the reference's kernel branch here.
-        gids = torch.where(live, slot_ids,
-                           torch.full_like(slot_ids, domain))
-        acc = _accumulate(aggs, block, gids, live, domain)
-        occ = torch.zeros(domain + 1, dtype=torch.int32, device=dev)
-        occ.index_add_(0, gids.long(), live.to(torch.int32))
-        occupied = occ[:domain] > 0
+        if use_kernel is None:
+            use_kernel = _kernel_eligible(block, aggs)
+        elif use_kernel and not _kernel_eligible(block, aggs):
+            raise ValueError("the direct_agg kernel takes sum/count/avg over "
+                             "fixed-point arguments without a filter")
+        if use_kernel:
+            acc, occupied = _accumulate_direct_kernel(aggs, block, slot_ids,
+                                                      live, domain)
+        else:
+            gids = torch.where(live, slot_ids,
+                               torch.full_like(slot_ids, domain))
+            acc = _accumulate(aggs, block, gids, live, domain)
+            occ = torch.zeros(domain + 1, dtype=torch.int32, device=dev)
+            occ.index_add_(0, gids.long(), live.to(torch.int32))
+            occupied = occ[:domain] > 0
     key_cols = unpack_keys_direct(
         torch.arange(domain, dtype=torch.int32, device=dev),
         [block[k] for k in keys])
@@ -435,6 +515,88 @@ def aggregate_direct(
     out = Block(names=names, columns=cols, sel=occupied)
     return AggregateResult(out, torch.sum(occupied, dtype=torch.int32),
                            torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def aggregate_sort(
+    block: Block, keys: Sequence[str], aggs: Sequence[AggDesc], num_slots: int
+) -> AggregateResult:
+    """General sort-based aggregation over ``num_slots`` group slots.
+
+    Rows sort stably on (dead last, then each key with its NULLs grouped
+    first, then position); a group starts wherever a sort operand
+    changes.  Each group's keys are gathered at its first row, and the
+    aggregates are an ``index_add_`` on the group ids (the reference's
+    scatter-free cumulative-sum layout is a TPU workaround; the integers
+    are the same).  More groups than ``num_slots`` report the number
+    needed as the overflow."""
+    from .sort import lexsort_stable
+
+    _check_supported(aggs)
+    n = block.capacity
+    live = block.sel_mask()
+    dev = live.device
+    key_cols = [block[k] for k in keys]
+    operands: List[torch.Tensor] = [~live]  # live rows first
+    for c in key_cols:
+        # a wide-decimal key sorts limb by limb (lower limbs are >= 0)
+        datas = ([c.data[:, i] for i in range(c.data.shape[1])]
+                 if c.data.ndim == 2 else [c.data])
+        validity = c.validity
+        if validity is not None and validity.ndim == 2:
+            validity = validity.all(dim=1)
+        if validity is not None:
+            operands.append(~validity)  # NULLs group together, first
+            # NULL slots may hold any payload (a join's unmatched rows):
+            # zero them so one NULL group stays one group
+            operands.extend(torch.where(validity, d, torch.zeros_like(d))
+                            for d in datas)
+        else:
+            operands.extend(datas)
+    perm = lexsort_stable(operands)
+
+    neq = torch.zeros(n, dtype=torch.bool, device=dev)
+    for op in operands:
+        arr = op[perm]
+        neq |= arr != torch.roll(arr, 1)
+    neq[:1] = False
+    gid_sorted = torch.cumsum(neq.to(torch.int32), 0, dtype=torch.int32)
+    live_sorted = live[perm]
+    # live rows come first and group ids never decrease
+    num_groups = (torch.max(torch.where(live_sorted, gid_sorted,
+                                        torch.full_like(gid_sorted, -1)))
+                  + 1) if n else torch.zeros((), dtype=torch.int32, device=dev)
+    overflow = torch.where(num_groups > num_slots, num_groups,
+                           torch.zeros_like(num_groups)).to(torch.int64)
+    gids = torch.where(live_sorted, torch.clamp(gid_sorted, max=num_slots),
+                       torch.full_like(gid_sorted, num_slots))
+
+    needed: List[str] = []
+    for a in aggs:
+        for nm in (a.arg, a.filter_col):
+            if nm is not None and nm not in needed:
+                needed.append(nm)
+    sorted_block = (block.select(needed).take(perm) if needed
+                    else Block(names=(), columns=(), sel=None))
+    acc = _accumulate(aggs, sorted_block, gids, live_sorted, num_slots)
+
+    # each group's keys from its first row, composed through perm
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    first = live_sorted & (neq | (pos == 0) | ~torch.roll(live_sorted, 1))
+    starts = torch.zeros(num_slots + 1, dtype=torch.int64, device=dev)
+    starts.scatter_(0, torch.where(first, gids, torch.full_like(gids, num_slots)).long(),
+                    pos)
+    orig_start = perm[starts[:num_slots]] if n else starts[:num_slots]
+    out_key_cols = [
+        Column(c.data[orig_start],
+               None if c.validity is None else c.validity[orig_start],
+               c.dtype, c.dictionary)
+        for c in key_cols
+    ]
+    occupied = torch.arange(num_slots, dtype=torch.int32, device=dev) < num_groups
+    names = tuple(keys) + tuple(nm for nm, _ in acc)
+    cols = tuple(out_key_cols) + tuple(c for _, c in acc)
+    out = Block(names=names, columns=cols, sel=occupied)
+    return AggregateResult(out, num_groups, overflow)
 
 
 def aggregate_scalar(block: Block, aggs: Sequence[AggDesc]) -> Block:
@@ -479,13 +641,18 @@ def _dispatch_aggregate(
     packed = pack_keys_direct([block[k] for k in keys])
     if packed is not None and packed[1] <= DIRECT_DOMAIN_LIMIT:
         return aggregate_direct(block, keys, aggs, packed)
-    raise NotImplementedError(
-        "group keys without a small static domain need the sort or stream "
-        "aggregation method: it comes with the Q3 slice of the port")
+    if num_slots is None:
+        num_slots = block.capacity
+    cb = block.clustered_by
+    if cb and len(keys) <= len(cb) and set(keys) == set(cb[: len(keys)]):
+        raise NotImplementedError(
+            "group keys the block is clustered on take the stream "
+            "aggregation method: it comes with the Q3 slice of the port")
+    return aggregate_sort(block, keys, aggs, num_slots)
 
 
 __all__ = [
     "AggDesc", "AggregateResult", "hash_aggregate", "aggregate_direct",
-    "aggregate_scalar", "agg_result_dtype", "key_domain_size",
+    "aggregate_sort", "aggregate_scalar", "agg_result_dtype", "key_domain_size",
     "pack_keys_direct", "unpack_keys_direct", "DIRECT_DOMAIN_LIMIT",
 ]

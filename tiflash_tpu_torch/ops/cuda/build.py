@@ -4,7 +4,8 @@ Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point.
 At first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library under ``tiflash_tpu_torch/build/`` (named by the hash of source
 and flags, so an edited source rebuilds) and loaded with ``ctypes``.
-Nothing here runs at import time.
+``build_libraries`` builds several sources at once, one ``nvcc`` process
+each.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -44,37 +45,59 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and load it (once per process)."""
-    if name in _LOADED:
-        return _LOADED[name]
-    src = CSRC / f"{name}.cu"
-    text = src.read_bytes()
+def _lib_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to: named by the hash of source and
+    flags, so an edited source rebuilds."""
+    text = (CSRC / f"{name}.cu").read_bytes()
     tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"lib{name}-{tag}.so"
-    BUILD_SECONDS[name] = 0.0
-    if not lib_path.exists():
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build_libraries(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """Build every ``csrc/<name>.cu`` that is not on disk yet, one
+    ``nvcc`` per source, all started together, then load them all."""
+    todo = [n for n in dict.fromkeys(names) if n not in _LOADED]
+    jobs = []
+    for name in todo:
+        lib_path = _lib_path(name)
+        BUILD_SECONDS[name] = 0.0
+        if lib_path.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
         fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
         os.close(fd)
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                capture_output=True, text=True)
-            BUILD_LOG[name] = proc.stdout + proc.stderr
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, lib_path, tmp, proc, time.perf_counter()))
+    failed = []
+    try:
+        for name, lib_path, tmp, proc, t0 in jobs:
+            BUILD_LOG[name] = proc.communicate()[0]
+            BUILD_SECONDS[name] = time.perf_counter() - t0
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {src} ({proc.returncode}):\n"
-                    f"{BUILD_LOG[name]}")
-            os.replace(tmp, lib_path)  # atomic: no half-written library
-        finally:
+                failed.append(f"nvcc failed on csrc/{name}.cu "
+                              f"({proc.returncode}):\n{BUILD_LOG[name]}")
+            else:
+                os.replace(tmp, lib_path)  # atomic: no half-written library
+    finally:
+        for _, _, tmp, proc, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
             if os.path.exists(tmp):
                 os.unlink(tmp)
-        BUILD_SECONDS[name] = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(lib_path))
-    _LOADED[name] = lib
-    return lib
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in todo:
+        _LOADED[name] = ctypes.CDLL(str(_lib_path(name)))
+    return {n: _LOADED[n] for n in names}
 
 
-__all__ = ["load_library", "BUILD_SECONDS", "BUILD_LOG", "BUILD_DIR"]
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed and load it (once per process)."""
+    return build_libraries([name])[name]
+
+
+__all__ = ["load_library", "build_libraries", "BUILD_SECONDS", "BUILD_LOG",
+           "BUILD_DIR"]

@@ -3,8 +3,12 @@
 Counterpart of ``tiflash_tpu/plan/compiler.py``.  The reference traces a
 fragment into one jitted program; the port runs the same walk eagerly.
 Filters stay lazy selection masks; an Aggregation first tries the fused
-scan->filter->project->aggregate path (``ops/stream_fuse.py``) and falls
-back to the general aggregation methods.
+scan->filter->project->aggregate path (``ops/stream_fuse.py``), which
+declines any chain but scan/selection/projection (a join child, for
+one), and falls back to the general aggregation methods.  A Join runs its
+probe subtree, then its build subtree (``ops/join.py``); node ids are the
+reference's DFS pre-order ids, so overflow keys such as ``Join_5``
+match.
 
 The reference chooses the fused path by an environment knob; here it is
 the explicit ``fuse_stream_agg`` argument of ``compile_fragment``.
@@ -21,6 +25,7 @@ from ..core.block import Block
 from ..expr.compile import ExprEvaluator
 from ..expr.nodes import ColumnRef
 from ..ops.aggregate import hash_aggregate
+from ..ops.join import hash_join_with_tail
 from ..ops.sort import limit_block, sort_block
 from . import nodes as P
 
@@ -117,6 +122,24 @@ def _exec_node(node: P.PlanNode, tables: Dict[str, Block], diag: Diagnostics,
         diag.overflows[nid] = res.overflow
         diag.rows[nid] = res.num_groups
         return res.block
+
+    if isinstance(node, P.Join):
+        if node.rf_id is not None:
+            raise NotImplementedError(
+                "runtime filters (Join.rf_id) come with the distribution "
+                "slice of the port")
+        # probe first, then build: the DFS pre-order ids of the reference
+        probe = child_of(node.probe)
+        build = child_of(node.build)
+        cap = None if node.unique_build else (node.output_capacity
+                                              or probe.capacity)
+        joined, extras = hash_join_with_tail(
+            probe, build, list(node.probe_keys), list(node.build_keys),
+            kind=node.kind, output_capacity=cap,
+            build_payload=node.build_payload)
+        diag.overflows[nid] = extras["overflow"]
+        diag.rows[nid] = joined.num_rows()
+        return joined
 
     if isinstance(node, P.Sort):
         child = child_of(node.child)

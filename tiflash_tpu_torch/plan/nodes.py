@@ -1,9 +1,9 @@
-"""Plan IR: the node kinds the TPC-H Q1/Q6 slice runs.
+"""Plan IR: the node kinds the TPC-H Q1, Q6 and Q7 slices run.
 
 Counterpart of ``tiflash_tpu/plan/nodes.py``: TableScan, Selection,
-AddColumns, Projection, Aggregation, Sort and Limit, with the same fields
-and ``pretty()``.  Joins, TopN, windows, unions, CTEs and exchanges come
-with later slices of the port.
+AddColumns, Projection, Aggregation, Join, Sort and Limit, with the same
+fields and ``pretty()``.  TopN, cross joins, windows, unions, CTEs and
+exchanges come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -90,6 +90,36 @@ class Aggregation(PlanNode):
 
 
 @dataclasses.dataclass
+class Join(PlanNode):
+    """Hash join.  children = (probe, build).  ``unique_build`` selects
+    the 1:N fast path; ``output_capacity`` sizes the N:M expansion.
+    ``rf_id`` (a runtime filter published by the build side) and
+    ``build_payload`` (the build columns to emit; None = all) are the
+    reference's fields."""
+
+    kind: str
+    probe_keys: Sequence[str]
+    build_keys: Sequence[str]
+    probe: PlanNode = None  # type: ignore[assignment]
+    build: PlanNode = None  # type: ignore[assignment]
+    unique_build: bool = False
+    output_capacity: Optional[int] = None
+    rf_id: Optional[str] = None
+    build_payload: Optional[Sequence[str]] = None
+
+    def __post_init__(self):
+        self.children = (self.probe, self.build)
+
+    def describe(self):
+        return (
+            f"Join({self.kind}; probe={list(self.probe_keys)} "
+            f"build={list(self.build_keys)}"
+            + (" unique" if self.unique_build else "")
+            + ")"
+        )
+
+
+@dataclasses.dataclass
 class Sort(PlanNode):
     sort_keys: Sequence[SortKey]
     child: PlanNode = None  # type: ignore[assignment]
@@ -129,4 +159,4 @@ class AddColumns(PlanNode):
 
 
 __all__ = ["PlanNode", "TableScan", "Selection", "Projection", "Aggregation",
-           "Sort", "Limit", "AddColumns"]
+           "Join", "Sort", "Limit", "AddColumns"]

@@ -4,7 +4,8 @@ Counterpart of ``tiflash_tpu/runtime/executor.py:run_query``.  A plan
 runs through ``plan/compiler.py:execute_plan``; when an operator reports
 that its bounded output overflowed, the runner grows that operator's
 capacity to 1.25x what it reported and runs again, up to
-``MAX_CAPACITY_RETRIES`` times.
+``MAX_CAPACITY_RETRIES`` times.  A Join whose unique-build promise was
+false also moves to the general join path.
 
 Not ported: the mesh (distributed) path, the plan rewrites
 (``eager_aggregation``/``prune_columns``), auto-sizing, out-of-core
@@ -59,6 +60,11 @@ def _grow(plan: P.PlanNode, flagged: Dict[str, int]) -> None:
         node = nodes.get(int(key.rpartition("_")[2]))
         if isinstance(node, P.Aggregation):
             node.num_slots = max(target, (node.num_slots or 0) * 2)
+        elif isinstance(node, P.Join):
+            node.output_capacity = max(target, (node.output_capacity or 0) * 2)
+            # an overflow of the unique path means the build keys were
+            # not unique: retry on the general (duplicate-correct) path
+            node.unique_build = False
 
 
 def run_query(
