@@ -4,7 +4,7 @@
 
 Builds the port's CUDA kernels from ``tiflash_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once) and holds each against its plain torch
-version on the card.  Then it drives two paths through
+version on the card.  Then it drives three paths through
 ``tiflash_tpu_torch.runtime.executor.run_query`` on ``cuda``, at SF1 with
 random data from seed 0:
 
@@ -12,12 +12,18 @@ random data from seed 0:
   the stream_agg kernel;
 - TPC-H Q7 and Q7 over all nation pairs over the five-table catalog
   (nation, supplier, customer, orders, lineitem), which join and then
-  aggregate by the sort method (Q7) or the direct_agg kernel (Q7-pairs).
+  aggregate by the sort method (Q7) or the direct_agg kernel (Q7-pairs);
+- TPC-H Q3, Q10, Q4 and Q22 over the three-table catalog (lineitem,
+  orders, customer), and ORDER BY l_extendedprice DESC LIMIT 100 over
+  the lineitem table: the plan rewrites, the stream aggregation method,
+  top-N and semi/anti joins, with no kernel; then the same top-N over a
+  100,000,000-row int64 column made on the card from a seed.
 
-Every result is checked bit-exact against the port's own CPU run and an
-independent numpy computation.  Any failure exits non-zero.  The last
-line of standard output is the JSON device record; the line before it
-lists the kernels with their launch counts, errors and times.
+Every result is checked bit-exact against the port's own CPU run (but
+the 100M-row top-N, whose CPU run would take most of the script's time)
+and an independent numpy computation.  Any failure exits non-zero.  The
+last line of standard output is the JSON device record; the line before
+it lists the kernels with their launch counts, errors and times.
 
 Imports neither jax nor the JAX package.
 """
@@ -39,6 +45,11 @@ Q1_CUTOFF = "1998-09-02"
 Q6_RANGE = ("1994-01-01", "1995-01-01")
 Q7_RANGE = ("1995-01-01", "1996-12-31")
 Q7_TABLES = ["nation", "supplier", "customer", "orders", "lineitem"]
+Q3_TABLES = ["lineitem", "orders", "customer"]
+Q3_DATE = "1995-03-15"
+Q4_RANGE = ("1993-07-01", "1993-10-01")
+Q10_RANGE = ("1993-10-01", "1994-01-01")
+TOPN_LIMIT = 100
 
 
 def card_line() -> str:
@@ -105,10 +116,11 @@ def numpy_q6(li: dict) -> dict:
 
 
 def lineitem_arrays(cat) -> dict:
-    """Host numpy copies of the columns Q1/Q6 read, plus dictionaries."""
+    """Host numpy copies of the columns Q1/Q6 and top-N read, plus
+    dictionaries."""
     t = cat["lineitem"].block
     li = {n: t[n].data.numpy() for n in (
-        "l_shipdate", "l_returnflag", "l_linestatus", "l_quantity",
+        "l_orderkey", "l_shipdate", "l_returnflag", "l_linestatus", "l_quantity",
         "l_extendedprice", "l_discount", "l_tax")}
     li["rf_dict"] = t["l_returnflag"].dictionary
     li["ls_dict"] = t["l_linestatus"].dictionary
@@ -208,6 +220,128 @@ def numpy_q7_pairs(a: dict) -> dict:
     out["avg_volume"] = [_half_up_div(s * 10 ** 4, n) for s, n in zip(sums, counts)]
     out["n_lines"] = counts
     return out
+
+
+def tpch3_arrays(cat) -> dict:
+    """Host numpy copies of the columns Q3, Q4, Q10 and Q22 read from the
+    three-table catalog, plus the string dictionaries they compare."""
+    cols = {
+        "customer": ("c_custkey", "c_mktsegment", "c_acctbal"),
+        "orders": ("o_orderkey", "o_custkey", "o_orderdate", "o_shippriority",
+                   "o_orderpriority"),
+        "lineitem": ("l_orderkey", "l_extendedprice", "l_discount", "l_shipdate",
+                     "l_commitdate", "l_receiptdate", "l_returnflag"),
+    }
+    out = {c: cat[t].block[c].data.numpy() for t, cs in cols.items() for c in cs}
+    out["segment_dict"] = cat["customer"].block["c_mktsegment"].dictionary
+    out["priority_dict"] = cat["orders"].block["o_orderpriority"].dictionary
+    out["returnflag_dict"] = cat["lineitem"].block["l_returnflag"].dictionary
+    return out
+
+
+def _order_of_line(a: dict):
+    """Per lineitem row: the row of its order in the orders table (or -1),
+    by np.searchsorted on the sorted o_orderkey."""
+    import numpy as np
+
+    okeys = a["o_orderkey"]
+    pos = np.clip(np.searchsorted(okeys, a["l_orderkey"]), 0, len(okeys) - 1)
+    return np.where(okeys[pos] == a["l_orderkey"], pos, -1)
+
+
+def _group_sums(keys, vals):
+    """(sorted unique keys, int64 sums of vals per key) with np.add.at."""
+    import numpy as np
+
+    uniq, inv = np.unique(keys, return_inverse=True)
+    sums = np.zeros(len(uniq), dtype=np.int64)
+    np.add.at(sums, inv.reshape(-1), vals)
+    return uniq, sums
+
+
+def numpy_q3(a: dict) -> dict:
+    """TPC-H Q3 over host arrays: BUILDING customers' orders before
+    1995-03-15, their lines shipped after it, revenue per order, the top
+    10 by (revenue desc, o_orderdate, l_orderkey)."""
+    import numpy as np
+
+    cut = _days(Q3_DATE)
+    building = a["segment_dict"].index("BUILDING")
+    cust_ok = np.zeros(int(a["c_custkey"].max()) + 1, dtype=bool)
+    cust_ok[a["c_custkey"]] = a["c_mktsegment"] == building
+    order_ok = (a["o_orderdate"] < cut) & cust_ok[a["o_custkey"]]
+    orow = _order_of_line(a)
+    m = (a["l_shipdate"] > cut) & (orow >= 0)
+    m &= order_ok[np.maximum(orow, 0)]
+    rev = a["l_extendedprice"] * (100 - a["l_discount"])   # scale 4
+    okeys, sums = _group_sums(a["l_orderkey"][m], rev[m])
+    orow_g = np.searchsorted(a["o_orderkey"], okeys)
+    odate = a["o_orderdate"][orow_g].astype(np.int64)
+    top = np.lexsort((okeys, odate, -sums))[:10]
+    return {"l_orderkey": okeys[top].tolist(), "o_orderdate": odate[top].tolist(),
+            "o_shippriority": a["o_shippriority"][orow_g][top].tolist(),
+            "revenue": sums[top].tolist()}
+
+
+def numpy_q10(a: dict) -> dict:
+    """TPC-H Q10 over host arrays: returned lines of orders from
+    1993-10-01 to 1994-01-01, revenue per customer, the top 20 by
+    (revenue desc, c_custkey)."""
+    import numpy as np
+
+    lo, hi = (_days(d) for d in Q10_RANGE)
+    order_ok = (a["o_orderdate"] >= lo) & (a["o_orderdate"] < hi)
+    orow = _order_of_line(a)
+    m = (a["l_returnflag"] == a["returnflag_dict"].index("R")) & (orow >= 0)
+    m &= order_ok[np.maximum(orow, 0)]
+    rev = a["l_extendedprice"] * (100 - a["l_discount"])   # scale 4
+    custkeys, sums = _group_sums(a["o_custkey"][np.maximum(orow, 0)][m], rev[m])
+    acctbal = np.zeros(int(a["c_custkey"].max()) + 1, dtype=np.int64)
+    acctbal[a["c_custkey"]] = a["c_acctbal"]
+    top = np.lexsort((custkeys, -sums))[:20]
+    return {"c_custkey": custkeys[top].tolist(),
+            "c_acctbal": acctbal[custkeys[top]].tolist(),
+            "revenue": sums[top].tolist()}
+
+
+def numpy_q4(a: dict) -> dict:
+    """TPC-H Q4 over host arrays: orders of 1993Q3 with a line committed
+    before it was received, counted per priority."""
+    import numpy as np
+
+    lo, hi = (_days(d) for d in Q4_RANGE)
+    late = a["l_orderkey"][a["l_commitdate"] < a["l_receiptdate"]]
+    m = ((a["o_orderdate"] >= lo) & (a["o_orderdate"] < hi)
+         & np.isin(a["o_orderkey"], late))
+    counts = np.bincount(a["o_orderpriority"][m], minlength=len(a["priority_dict"]))
+    names = a["priority_dict"]
+    return {"o_orderpriority": [names[i] for i in np.flatnonzero(counts)],
+            "order_count": counts[counts > 0].tolist()}
+
+
+def numpy_q22(a: dict) -> dict:
+    """Q22's anti join: customers with a positive balance and no order,
+    their count, balance sum (scale 2) and average (scale 6, half up)."""
+    import numpy as np
+
+    m = (a["c_acctbal"] > 0) & ~np.isin(a["c_custkey"], a["o_custkey"])
+    n = int(m.sum())
+    s = int(np.sum(a["c_acctbal"][m], dtype=np.int64))
+    return {"numcust": [n], "totacctbal": [s if n else None],
+            "avgbal": [_half_up_div(s * 10 ** 4, n) if n else None]}
+
+
+def numpy_topn(keys, payload: dict, limit: int) -> dict:
+    """ORDER BY keys DESC LIMIT limit, ties by position: np.argpartition
+    for the limit-th key, every row at least that large, then a stable
+    sort of those candidates."""
+    import numpy as np
+
+    limit = min(limit, len(keys))
+    kth = keys[np.argpartition(keys, len(keys) - limit)[len(keys) - limit:]].min()
+    cand = np.flatnonzero(keys >= kth)
+    top = cand[np.argsort(-keys[cand], kind="stable")][:limit]
+    return {name: col[top].tolist() for name, col in payload.items()}
 
 
 def block_result(block) -> tuple:
@@ -350,8 +484,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
         return 2
-    from tiflash_tpu_torch.bench.tpch_queries import (q1_plan, q6_plan,
-                                                      q7_nation_pairs_plan, q7_plan)
+    from tiflash_tpu_torch.bench.tpch_queries import (
+        q1_plan, q3_plan, q4_plan, q6_plan, q7_nation_pairs_plan, q7_plan, q10_plan,
+        q22_plan, sort_topn_plan, topn_100m_block, topn_100m_plan)
     from tiflash_tpu_torch.ops import stream_fuse as SF_
     from tiflash_tpu_torch.ops.cuda import build, direct_agg as DA, stream_agg as SA
     from tiflash_tpu_torch.runtime.executor import run_query
@@ -565,6 +700,83 @@ def main() -> int:
                      f"{direct_plain_ms:.3f} ms over {slots.shape[0]} rows "
                      f"({live} live), S={n_slots}, {vals.shape[0]} value columns")
         print(line + f" [{card}]")
+
+    # ---- 6. Q3, Q10, Q4, Q22 and top-N at SF1; top-N over 100M rows --------
+    # no kernel is on this path: Q3's stream aggregation has 1.5M groups
+    # (the fuse declines), Q4's 5 priorities take the masked method
+    t0 = time.perf_counter()
+    cat3 = generate_tpch(sf=SF, seed=SEED, tables=Q3_TABLES)
+    print(f"three-table catalog sf{SF}: " + ", ".join(
+        f"{t} {cat3[t].row_count}" for t in Q3_TABLES)
+        + f" rows in {time.perf_counter() - t0:.1f} s")
+    a3 = tpch3_arrays(cat3)
+    np3 = {"q3": numpy_q3(a3), "q10": numpy_q10(a3), "q4": numpy_q4(a3),
+           "q22": numpy_q22(a3),
+           "topn": numpy_topn(li["l_extendedprice"],
+                              {"l_orderkey": li["l_orderkey"],
+                               "l_extendedprice": li["l_extendedprice"]}, TOPN_LIMIT)}
+    cats = {"three": cat3, "lineitem": cat}
+    slice3 = (("q3", q3_plan, "three"), ("q10", q10_plan, "three"),
+              ("q4", q4_plan, "three"), ("q22", q22_plan, "three"),
+              ("topn", lambda: sort_topn_plan(TOPN_LIMIT), "lineitem"))
+    t0 = time.perf_counter()
+    cpu3 = {}
+    for name, plan_fn, c in slice3:
+        cpu3[name] = block_result(run_query(plan_fn(), cats[c].blocks("cpu"))[0])
+        if cpu3[name][0] != np3[name]:
+            raise AssertionError(f"{name}: port CPU run != numpy\n{cpu3[name][0]}\n"
+                                 f"{np3[name]}")
+    print(f"cpu reference runs equal numpy for q3, q10, q4, q22 and topn "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    gpu3 = {c: cats[c].blocks("cuda") for c in cats}
+    torch.cuda.synchronize()
+    SA.LAUNCHES = DA.LAUNCHES = 0
+    fused_before = SF_.FUSE_STATS["count"]
+    for name, plan_fn, c in slice3:
+        out, summary = run_query(plan_fn(), gpu3[c])
+        torch.cuda.synchronize()
+        if summary.device != "cuda:0" or summary.retries:
+            raise AssertionError(f"{name}: ran on {summary.device} with "
+                                 f"{summary.retries} retries")
+        got = block_result(out)
+        if got != cpu3[name]:
+            raise AssertionError(f"{name}: cuda result != cpu result\n{got}\n{cpu3[name]}")
+        if got[0] != np3[name]:
+            raise AssertionError(f"{name}: cuda result != numpy")
+        print(f"{name} sf{SF} on cuda: {summary.result_rows} rows, bit-exact vs port "
+              f"CPU run and numpy")
+        if name in ("q3", "q22"):
+            print(f"  {name} rows: {got[0]}")
+    if SA.LAUNCHES or DA.LAUNCHES or SF_.FUSE_STATS["count"] != fused_before:
+        raise AssertionError("q3/q10/q4/q22/topn reached a kernel or the fused path")
+    for name, plan_fn, c in slice3:
+        plan, tables = plan_fn(), gpu3[c]
+        q_ms = time_ms(lambda: run_query(plan, tables), WARM_RUNS)
+        print(f"{name} sf{SF} run_query median {q_ms:.3f} ms over {WARM_RUNS} warm "
+              f"runs [{card}]")
+    del gpu3
+
+    t0 = time.perf_counter()
+    big = {"big": topn_100m_block(device="cuda")}
+    torch.cuda.synchronize()
+    n_big = big["big"].capacity
+    print(f"topn_100m block: {n_big} rows made on the card from its seed in "
+          f"{time.perf_counter() - t0:.2f} s")
+    out, summary = run_query(topn_100m_plan(TOPN_LIMIT), big)
+    if summary.device != "cuda:0":
+        raise AssertionError(f"topn_100m: result on {summary.device}")
+    k_host = big["big"]["k"].data.cpu().numpy()
+    want = numpy_topn(k_host, {"k": k_host, "v": big["big"]["v"].data.cpu().numpy()},
+                      TOPN_LIMIT)
+    del k_host
+    if out.to_pylists() != want:
+        raise AssertionError("topn_100m: cuda result != numpy")
+    print(f"topn_100m on cuda: {summary.result_rows} rows of {n_big}, bit-exact vs numpy")
+    plan = topn_100m_plan(TOPN_LIMIT)
+    q_ms = time_ms(lambda: run_query(plan, big), WARM_RUNS)
+    print(f"topn_100m run_query median {q_ms:.3f} ms over {WARM_RUNS} warm runs [{card}]")
+    del big
 
     print(json.dumps({"kernels": [{
         "name": "stream_agg",

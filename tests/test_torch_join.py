@@ -1,12 +1,14 @@
-"""The inner hash join: the PyTorch port's ``ops/join.py`` and the Join
-node of its compiler and runner, against the JAX package's on the same
-blocks made with numpy from a seed (tolerance zero: keys, payloads and
-flags are integers).
+"""The inner, semi and anti hash joins: the PyTorch port's
+``ops/join.py`` and the Join node of its compiler and runner, against the
+JAX package's on the same blocks made with numpy from a seed (tolerance
+zero: keys, payloads and flags are integers).
 
 Covers key normalization (int, multi-column and cross-dictionary string
 keys), the unique-build and N:M probes with NULL keys, dead rows on both
-sides and a real key of 2^63-1, the overflow of a build promised unique
-that is not, and the runner's retry on the general path.
+sides and a real key of 2^63-1, semi and anti joins on both probe paths
+(a plain anti join keeps NULL-key probe rows; dead rows stay dead), the
+overflow of a build promised unique that is not, and the runner's retry
+on the general path.
 """
 
 import jax.numpy as jnp
@@ -69,14 +71,14 @@ def _tables(seed, n_probe=400, n_build=120, dup=False):
     return j, _port(j)
 
 
-def _ref_join(j, capacity=None, build_payload=None):
+def _ref_join(j, capacity=None, build_payload=None, kind="inner"):
     """The reference's hash_join under one jit (its eager op-by-op form
     costs seconds on this CPU): (joined, extras without the build object,
     build's sorted_keys, perm, num_live, unique)."""
     import jax
 
     def run(probe, build):
-        out, x = JJ.hash_join(probe, build, ["pk"], ["bk"],
+        out, x = JJ.hash_join(probe, build, ["pk"], ["bk"], kind=kind,
                               output_capacity=capacity, build_payload=build_payload)
         b = x["build"]
         return out, x["overflow"], x["matched_flags"], (
@@ -188,13 +190,20 @@ def _plan(P, unique):
 
 
 def test_run_query_retries_a_broken_unique_promise_on_the_general_path():
+    """The retry grows the runner's rewritten tree, as the reference's
+    does; the caller's plan is left as given."""
     j, t = _tables(seed=5, dup=True)
-    jo, _ = j_run(_plan(JP, True), j)
+    jo, j_summary = j_run(_plan(JP, True), j)
     plan = _plan(TP, True)
     to, summary = t_run(plan, t)
-    assert summary.retries == 1 and summary.overflow_nodes == ["Join_1"]
-    assert plan.unique_build is False and plan.output_capacity == int(401 * 1.25) + 1
+    assert summary.retries == j_summary.retries == 1
+    assert summary.overflow_nodes == j_summary.overflow_nodes == ["Join_1"]
+    assert plan.unique_build is True and plan.output_capacity is None
     assert _rows(to) == _rows(jo)
+    # growing the caller's own plan as the retry did gives the same rows
+    grown = _plan(TP, False)
+    grown.output_capacity = int(401 * 1.25) + 1
+    assert _rows(t_run(grown, t)[0]) == _rows(to)
     # the general path's rows are the fast path's plus the duplicate's
     want, _ = t_run(_plan(TP, False), t)
     assert sorted(map(tuple, zip(*to.to_pylists().values()))) == \
@@ -221,8 +230,54 @@ def test_overflow_keys_are_the_reference_dfs_ids():
     assert _rows(to) == _rows(jo)
 
 
-@pytest.mark.parametrize("kind", ["semi", "anti", "left_outer", "right_outer",
-                                  "full_outer", "anti_null_aware"])
+@pytest.mark.parametrize("kind", ["semi", "anti"])
+@pytest.mark.parametrize("capacity,dup", [(None, False), (None, True), (700, False),
+                                          (1, True)],
+                         ids=["unique", "unique_dup_build", "general", "general_dup_build"])
+def test_semi_and_anti_match_reference(kind, capacity, dup):
+    """The probe rows, narrowed: no expansion and no overflow, even when
+    the build keys repeat; an anti join keeps selected probe rows whose
+    key is NULL, and dead probe rows stay dead."""
+    j, t = _tables(seed=8, dup=dup)
+    jo, j_overflow, j_flags, _ = _ref_join(j, capacity, kind=kind)
+    to, tx = TJ.hash_join_with_tail(t["probe"], t["build"], ["pk"], ["bk"], kind,
+                                    capacity)
+    assert _rows(to) == _rows(jo)
+    assert to.names == t["probe"].names
+    np.testing.assert_array_equal(_np(to.sel), _np(jo.sel))
+    np.testing.assert_array_equal(_np(tx["matched_flags"]), _np(j_flags))
+    assert int(tx["overflow"]) == int(j_overflow) == 0
+    probe = t["probe"]
+    null_live = probe.sel & ~probe["pk"].validity
+    assert bool(null_live.any()) and bool((~probe.sel).any())
+    assert not bool((to.sel & ~probe.sel).any())
+    assert bool((to.sel[null_live]).all()) == (kind == "anti")
+
+
+@pytest.mark.parametrize("kind", ["semi", "anti"])
+def test_semi_and_anti_join_nodes_match_reference(kind):
+    """A semi/anti Join under an aggregation, through both runners."""
+    from tiflash_tpu.ops.aggregate import AggDesc as JAgg
+
+    from tiflash_tpu_torch.ops.aggregate import AggDesc as TAgg
+
+    j, t = _tables(seed=9)
+
+    def plan(P, AggDesc):
+        join = P.Join(kind=kind, probe_keys=["pk"], build_keys=["bk"],
+                      probe=P.TableScan("probe"), build=P.TableScan("build"),
+                      output_capacity=1)
+        return P.Aggregation(["ps"], [AggDesc("count", None, "n"),
+                                      AggDesc("sum", "pv", "s")], join)
+
+    jo, js = j_run(plan(JP, JAgg), j)
+    to, ts = t_run(plan(TP, TAgg), t)
+    assert _rows(to) == _rows(jo)
+    assert ts.plan_text == js.plan_text and ts.retries == js.retries == 0
+
+
+@pytest.mark.parametrize("kind", ["left_outer", "right_outer", "full_outer",
+                                  "anti_null_aware", "left_outer_semi"])
 def test_other_join_kinds_raise(kind):
     _, t = _tables(seed=7)
     with pytest.raises(NotImplementedError, match="later|slice"):

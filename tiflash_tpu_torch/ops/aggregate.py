@@ -1,4 +1,4 @@
-"""Aggregation: the keyless, direct-indexed and sort methods.
+"""Aggregation: the keyless, direct-indexed, sort and stream methods.
 
 Counterpart of ``tiflash_tpu/ops/aggregate.py``.  Ported here:
 
@@ -10,14 +10,16 @@ Counterpart of ``tiflash_tpu/ops/aggregate.py``.  Ported here:
 - key packing for small static key domains (``pack_keys_direct``);
 - ``hash_aggregate`` dispatch to the keyless method (``aggregate_scalar``),
   the direct method (``aggregate_direct``) for packed key domains up to
-  ``DIRECT_DOMAIN_LIMIT``, and the sort method (``aggregate_sort``) for
-  keys without a static domain.  The direct method has its masked
-  sub-method (domains <= 64), its ``direct_agg`` kernel branch
-  (``ops/cuda/direct_agg.py``) and its segment sub-method.
+  ``DIRECT_DOMAIN_LIMIT``, the stream method (``aggregate_stream``) for
+  keys the block is clustered on, and the sort method
+  (``aggregate_sort``) for the other keys without a static domain.  The
+  direct method has its masked sub-method (domains <= 64), its
+  ``direct_agg`` kernel branch (``ops/cuda/direct_agg.py``) and its
+  segment sub-method.
 
-Supported aggregates are sum, count and avg.  The stream method (keys the
-block is clustered on) comes with the Q3 slice of the port; the other
-aggregate functions with the functions slice.
+Supported aggregates are sum, count and avg (the stream method: over
+fixed-point arguments).  The other aggregate functions come with the
+functions slice of the port.
 """
 
 from __future__ import annotations
@@ -599,6 +601,108 @@ def aggregate_sort(
     return AggregateResult(out, num_groups, overflow)
 
 
+def _stream_accumulate_batched(
+    aggs: Sequence[AggDesc],
+    block: Block,
+    keys: Sequence[str],
+    key_cols: Sequence[Column],
+    live: torch.Tensor,
+    ends_ok: torch.Tensor,
+    e_idx: torch.Tensor,
+) -> Tuple[List[Tuple[str, Column]], torch.Tensor]:
+    """Every per-group quantity of the stream method is a read at the
+    group's end row: a cumulative sum differenced against the previous
+    group's end (spans are dense, so that is a shift), or a key value,
+    constant within its group.  The reference packs the reads into one
+    gather per dtype class, a TPU gather workaround; here each is one
+    indexing op."""
+
+    def at_ends(cum: torch.Tensor) -> torch.Tensor:
+        arr = cum[e_idx]
+        prev = torch.cat([torch.zeros(1, dtype=arr.dtype, device=arr.device),
+                          arr[:-1]])
+        return torch.where(ends_ok, arr - prev, torch.zeros((), dtype=arr.dtype,
+                                                            device=arr.device))
+
+    live_cum = torch.cumsum(live.to(torch.int64), 0)
+    live_counts = at_ends(live_cum)
+    occupied = ends_ok & (live_counts > 0)
+
+    out: List[Tuple[str, Column]] = []
+    for name, c in zip(keys, key_cols):
+        validity = None if c.validity is None else c.validity[e_idx]
+        out.append((name, Column(c.data[e_idx], validity, c.dtype, c.dictionary)))
+
+    for a in aggs:
+        col = block[a.arg] if a.arg is not None else None
+        base = _agg_live(block, a, live)
+        valid_row = base if col is None or col.validity is None else (base & col.validity)
+        plain = a.filter_col is None and (col is None or col.validity is None)
+        cnt = live_counts if plain else at_ends(
+            torch.cumsum(valid_row.to(torch.int64), 0))
+        if a.func == "count":
+            out.append((a.name, Column(cnt, None, INT64)))
+            continue
+        if col.dtype.is_float:
+            raise NotImplementedError(
+                f"{a.func} over a float column by the stream method is not "
+                "ported yet: the reference sums it with a segmented scan "
+                "whose rounding order comes with the functions slice of the "
+                "port")
+        vals = torch.where(valid_row, col.data.to(torch.int64),
+                           torch.zeros((), dtype=torch.int64, device=live.device))
+        # the running sums may wrap; their differences are exact mod 2^64
+        sums = at_ends(torch.cumsum(vals, 0))
+        if a.func == "sum":
+            rdt = agg_result_dtype(a.func, col.dtype)
+            scale_shift = rdt.scale - (col.dtype.scale if col.dtype.is_decimal else 0)
+            if rdt.is_decimal and scale_shift:
+                sums = sums * (10 ** scale_shift)
+        out.append((a.name, _finish(a, col, sums, cnt)))
+    return out, occupied
+
+
+def aggregate_stream(
+    block: Block, keys: Sequence[str], aggs: Sequence[AggDesc], num_slots: int
+) -> AggregateResult:
+    """Stream aggregation over key-clustered input, without a sort.
+
+    Rows with equal group keys are adjacent (``Block.clustered_by``), so
+    group boundaries come from a compare with the previous row.  They are
+    found over all rows, dead ones included: a group with no live row
+    keeps its slot, unoccupied, and the output ``sel`` is not a prefix.
+    Keys and their validity are read at each group's end row.  More
+    groups than ``num_slots`` (counted over all rows) report the number
+    needed as the overflow."""
+    from .merge import flagged_positions
+
+    _check_supported(aggs)
+    n = block.capacity
+    live = block.sel_mask()
+    key_cols = [block[k] for k in keys]
+
+    neq = torch.zeros(n, dtype=torch.bool, device=live.device)
+    for c in key_cols:
+        neq |= c.data != torch.roll(c.data, 1)
+        if c.validity is not None:
+            neq |= c.validity != torch.roll(c.validity, 1)
+    neq[:1] = False
+    total_groups = torch.sum(neq, dtype=torch.int64) + 1
+    overflow = torch.where(total_groups > num_slots, total_groups,
+                           torch.zeros_like(total_groups))
+
+    is_end = torch.cat([neq[1:], torch.ones(1, dtype=torch.bool, device=live.device)])
+    ends_dense = flagged_positions(is_end, num_slots)
+    ends_ok = ends_dense >= 0
+    e_idx = ends_dense.clamp(min=0).long()
+
+    acc, occupied = _stream_accumulate_batched(aggs, block, keys, key_cols, live,
+                                               ends_ok, e_idx)
+    out = Block(names=tuple(nm for nm, _ in acc),
+                columns=tuple(c for _, c in acc), sel=occupied)
+    return AggregateResult(out, torch.sum(occupied, dtype=torch.int32), overflow)
+
+
 def aggregate_scalar(block: Block, aggs: Sequence[AggDesc]) -> Block:
     """Aggregation without GROUP BY: single-row output (slot 0)."""
     live = block.sel_mask()
@@ -645,14 +749,14 @@ def _dispatch_aggregate(
         num_slots = block.capacity
     cb = block.clustered_by
     if cb and len(keys) <= len(cb) and set(keys) == set(cb[: len(keys)]):
-        raise NotImplementedError(
-            "group keys the block is clustered on take the stream "
-            "aggregation method: it comes with the Q3 slice of the port")
+        # equal group keys are already adjacent: no sort
+        return aggregate_stream(block, keys, aggs, num_slots)
     return aggregate_sort(block, keys, aggs, num_slots)
 
 
 __all__ = [
     "AggDesc", "AggregateResult", "hash_aggregate", "aggregate_direct",
-    "aggregate_sort", "aggregate_scalar", "agg_result_dtype", "key_domain_size",
+    "aggregate_sort", "aggregate_stream", "aggregate_scalar", "agg_result_dtype",
+    "key_domain_size",
     "pack_keys_direct", "unpack_keys_direct", "DIRECT_DOMAIN_LIMIT",
 ]

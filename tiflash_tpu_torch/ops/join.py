@@ -1,4 +1,5 @@
-"""Hash join as a sorted build side and a range probe: the inner join.
+"""Hash join as a sorted build side and a range probe: inner, semi and
+anti joins.
 
 Counterpart of ``tiflash_tpu/ops/join.py``.  The build "hash table" is
 the build keys sorted stably on (key, not matchable, position); a probe
@@ -13,15 +14,17 @@ Ported here:
 - ``build_join`` and ``JoinBuild.take_sorted``;
 - the unique-build fast path (``probe_join_unique``) and the N:M path
   with a bounded output and a required-capacity overflow
-  (``probe_join_general``), both for ``inner``;
-- ``hash_join``, whose unique path reports an overflow when the build
-  keys were not unique after all, so the runner retries on the general
-  path.
+  (``probe_join_general``), both for ``inner``, ``semi`` and ``anti``
+  (the last two narrow the probe side's selection; a plain anti join
+  keeps probe rows whose key is NULL);
+- ``hash_join``, whose unique inner path reports an overflow when the
+  build keys were not unique after all, so the runner retries on the
+  general path.
 
-Semi, anti, outer, null-aware and cross joins, and keys wider than 63
-bits (hashed keys with re-verification) raise ``NotImplementedError``:
-they come with the breadth slice of the port.  NULL join keys never
-match.
+Outer, null-aware, left-outer-semi and cross joins, and keys wider than
+63 bits (hashed keys with re-verification) raise
+``NotImplementedError``: they come with the breadth slice of the port.
+NULL join keys never match.
 """
 
 from __future__ import annotations
@@ -34,8 +37,9 @@ import torch
 from ..core.block import Block, Column
 from ..core.dtypes import DataType, TypeKind
 
-_LATER = ("comes with the breadth slice of the port (outer, semi, anti, "
-          "null-aware and cross joins, hashed wide keys)")
+_LATER = ("comes with the breadth slice of the port (outer, null-aware, "
+          "left-outer-semi and cross joins, hashed wide keys)")
+_KINDS = ("inner", "semi", "anti")
 
 
 # ---------------------------------------------------------------------------
@@ -212,7 +216,7 @@ def _matched_flags(build: JoinBuild, build_idx: torch.Tensor) -> torch.Tensor:
 
 
 def _check_kind(kind: str) -> None:
-    if kind != "inner":
+    if kind not in _KINDS:
         raise NotImplementedError(f"join kind {kind!r} {_LATER}")
 
 
@@ -227,6 +231,11 @@ def probe_join_unique(build: JoinBuild, probe_block: Block,
     lo, hi = _probe_ranges(build, probe_keys)
     matched = probe_live & (hi > lo)
     bidx = torch.where(matched, lo, torch.full_like(lo, -1))
+    if kind == "semi":
+        return probe_block.and_sel(matched), _matched_flags(build, bidx)
+    if kind == "anti":
+        # NOT EXISTS: a NULL-key row has no match, so it stays
+        return probe_block.and_sel(~matched), _matched_flags(build, bidx)
     build_rows = build.take_sorted(bidx, fill_invalid=True)
     joined = _merge_blocks(probe_block, build_rows).with_sel(matched)
     return joined, _matched_flags(build, bidx)
@@ -253,6 +262,14 @@ def probe_join_general(
     zero = torch.zeros_like(lo)
     lo = torch.where(probe_live, lo, zero)
     hi = torch.where(probe_live, hi, zero)
+    if kind in ("semi", "anti"):
+        # no expansion: the probe rows, narrowed, in the probe's capacity
+        matched = probe_live & (hi > lo)
+        bflags = _matched_flags(build, torch.where(matched, lo,
+                                                   torch.full_like(lo, -1)))
+        sel = matched if kind == "semi" else ~matched
+        return (probe_block.and_sel(sel), bflags,
+                torch.zeros((), dtype=torch.int64, device=lo.device))
     counts = (hi - lo).to(torch.int64)
     cum = torch.cumsum(counts, 0)
     total = cum[-1] if counts.shape[0] else torch.zeros((), dtype=torch.int64,
@@ -291,8 +308,9 @@ def hash_join(
 ):
     """Build + probe.  ``output_capacity is None`` is the caller's
     promise that the build keys are unique (the fast path); if the
-    promise is false the overflow carries ``probe capacity + 1`` so the
-    runner retries on the general path.  ``build_payload`` narrows which
+    promise is false an inner join's overflow carries ``probe capacity +
+    1`` so the runner retries on the general path (semi and anti joins
+    do not care about duplicates).  ``build_payload`` narrows which
     build columns the join emits.
 
     Returns (joined block, {"build", "matched_flags", "overflow"})."""
@@ -314,8 +332,9 @@ def hash_join(
         joined, bflags = probe_join_unique(build, probe_block, pkeys, pnull, kind)
         # duplicate live build keys: the fast path kept only the first
         # match of each probe row; say so instead of dropping rows
-        overflow = torch.where(
-            build.unique, torch.zeros((), dtype=torch.int64, device=pkeys.device),
+        zero = torch.zeros((), dtype=torch.int64, device=pkeys.device)
+        overflow = zero if kind != "inner" else torch.where(
+            build.unique, zero,
             torch.full((), probe_block.capacity + 1, dtype=torch.int64,
                        device=pkeys.device))
     else:
@@ -334,7 +353,7 @@ def hash_join_with_tail(
     build_payload: Optional[Sequence[str]] = None,
 ):
     """``hash_join`` plus the right/full-outer tail of unmatched build
-    rows.  Only ``inner`` is ported, which has no tail."""
+    rows.  The kinds ported (inner, semi, anti) have no tail."""
     _check_kind(kind)
     return hash_join(probe_block, build_block, probe_key_names,
                      build_key_names, kind=kind,

@@ -6,9 +6,9 @@ Filters stay lazy selection masks; an Aggregation first tries the fused
 scan->filter->project->aggregate path (``ops/stream_fuse.py``), which
 declines any chain but scan/selection/projection (a join child, for
 one), and falls back to the general aggregation methods.  A Join runs its
-probe subtree, then its build subtree (``ops/join.py``); node ids are the
-reference's DFS pre-order ids, so overflow keys such as ``Join_5``
-match.
+probe subtree, then its build subtree (``ops/join.py``); a TopN runs
+``ops/sort.py:top_n``.  Node ids are the reference's DFS pre-order ids,
+so overflow keys such as ``Join_5`` match.
 
 The reference chooses the fused path by an environment knob; here it is
 the explicit ``fuse_stream_agg`` argument of ``compile_fragment``.
@@ -26,7 +26,7 @@ from ..expr.compile import ExprEvaluator
 from ..expr.nodes import ColumnRef
 from ..ops.aggregate import hash_aggregate
 from ..ops.join import hash_join_with_tail
-from ..ops.sort import limit_block, sort_block
+from ..ops.sort import limit_block, sort_block, top_n
 from . import nodes as P
 
 
@@ -140,6 +140,12 @@ def _exec_node(node: P.PlanNode, tables: Dict[str, Block], diag: Diagnostics,
         diag.overflows[nid] = extras["overflow"]
         diag.rows[nid] = joined.num_rows()
         return joined
+
+    if isinstance(node, P.TopN):
+        child = child_of(node.child)
+        out = top_n(child, list(node.sort_keys), node.limit)
+        diag.rows[nid] = out.num_rows()
+        return out
 
     if isinstance(node, P.Sort):
         child = child_of(node.child)

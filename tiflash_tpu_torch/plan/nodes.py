@@ -1,9 +1,10 @@
-"""Plan IR: the node kinds the TPC-H Q1, Q6 and Q7 slices run.
+"""Plan IR: the node kinds the TPC-H Q1, Q3, Q4, Q6, Q7, Q10 and Q22
+slices run.
 
 Counterpart of ``tiflash_tpu/plan/nodes.py``: TableScan, Selection,
-AddColumns, Projection, Aggregation, Join, Sort and Limit, with the same
-fields and ``pretty()``.  TopN, cross joins, windows, unions, CTEs and
-exchanges come with later slices of the port.
+AddColumns, Projection, Aggregation, Join, TopN, Sort and Limit, with the
+same fields and ``pretty()``.  Cross joins, runtime filters, windows,
+unions, CTEs and exchanges come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -120,6 +121,22 @@ class Join(PlanNode):
 
 
 @dataclasses.dataclass
+class TopN(PlanNode):
+    """ORDER BY ... LIMIT: the first ``limit`` rows in sort order."""
+
+    sort_keys: Sequence[SortKey]
+    limit: int
+    child: PlanNode = None  # type: ignore[assignment]
+
+    def __post_init__(self):
+        self.children = (self.child,)
+
+    def describe(self):
+        ks = ", ".join(f"{k.name}{' desc' if k.desc else ''}" for k in self.sort_keys)
+        return f"TopN({ks}; limit={self.limit})"
+
+
+@dataclasses.dataclass
 class Sort(PlanNode):
     sort_keys: Sequence[SortKey]
     child: PlanNode = None  # type: ignore[assignment]
@@ -159,4 +176,4 @@ class AddColumns(PlanNode):
 
 
 __all__ = ["PlanNode", "TableScan", "Selection", "Projection", "Aggregation",
-           "Join", "Sort", "Limit", "AddColumns"]
+           "Join", "TopN", "Sort", "Limit", "AddColumns"]

@@ -1,15 +1,19 @@
 """Single-device query runner with capacity-overflow retries.
 
-Counterpart of ``tiflash_tpu/runtime/executor.py:run_query``.  A plan
-runs through ``plan/compiler.py:execute_plan``; when an operator reports
-that its bounded output overflowed, the runner grows that operator's
-capacity to 1.25x what it reported and runs again, up to
+Counterpart of ``tiflash_tpu/runtime/executor.py:run_query``.  The plan
+first goes through the reference's rewrites,
+``prune_columns(eager_aggregation(plan))`` (``plan/rewrite.py``), unless
+``plan_rewrites=False`` (the reference's
+``Settings.enable_plan_rewrites``).  It then runs through
+``plan/compiler.py:execute_plan``; when an operator reports that its
+bounded output overflowed, the runner grows that operator's capacity in
+the rewritten tree to 1.25x what it reported and runs again, up to
 ``MAX_CAPACITY_RETRIES`` times.  A Join whose unique-build promise was
 false also moves to the general join path.
 
-Not ported: the mesh (distributed) path, the plan rewrites
-(``eager_aggregation``/``prune_columns``), auto-sizing, out-of-core
-fallbacks and the session settings.  They come with later slices.
+Not ported: the mesh (distributed) path, auto-sizing, out-of-core
+fallbacks and the rest of the reference's ``Settings``.  They come with
+later slices.
 """
 
 from __future__ import annotations
@@ -72,14 +76,21 @@ def run_query(
     tables: Dict[str, Block],
     fuse_stream_agg: bool = True,
     mesh=None,
+    plan_rewrites: bool = True,
 ) -> Tuple[Block, ExecutionSummary]:
     """Run ``plan`` over ``tables`` (Blocks, all on one device) with
-    overflow retries.  Returns (result block, summary)."""
+    overflow retries.  Returns (result block, summary).  Capacity growth
+    lands on the rewritten tree; with ``plan_rewrites=False`` that is
+    ``plan`` itself."""
     if mesh is not None:
         raise NotImplementedError(
             "run_query over a mesh comes with the distribution slice of the "
             "port; this runner is single-device")
     t_start = time.perf_counter()
+    if plan_rewrites:
+        from ..plan.rewrite import eager_aggregation, prune_columns
+
+        plan = prune_columns(eager_aggregation(plan))
     summary = ExecutionSummary(plan_text=plan.pretty())
     for attempt in range(MAX_CAPACITY_RETRIES + 1):
         diag = Diagnostics({}, {})
