@@ -17,11 +17,18 @@ random data from seed 0:
   orders, customer), and ORDER BY l_extendedprice DESC LIMIT 100 over
   the lineitem table: the plan rewrites, the stream aggregation method,
   top-N and semi/anti joins, with no kernel; then the same top-N over a
-  100,000,000-row int64 column made on the card from a seed.
+  100,000,000-row int64 column made on the card from a seed;
+- TPC-H Q2, Q5, Q8, Q9, Q11-Q21 and Q18 at TPC-H's threshold of 300
+  over the eight-table catalog: decimal division and wide compares,
+  LIKE/IN, min/max and count_distinct, hashed two-column join keys, left
+  outer and cross joins and a CTE, with no kernel, as the CPU dispatch
+  predicts.
 
 Every result is checked bit-exact against the port's own CPU run (but
 the 100M-row top-N, whose CPU run would take most of the script's time)
-and an independent numpy computation.  Any failure exits non-zero.  The
+and an independent numpy computation (in the eight-table phase, one per
+new mechanism: Q2, Q9, Q13, Q14, Q16 and Q18-300).  Any failure exits
+non-zero.  The
 last line of standard output is the JSON device record; the line before
 it lists the kernels with their launch counts, errors and times.
 
@@ -50,6 +57,10 @@ Q3_DATE = "1995-03-15"
 Q4_RANGE = ("1993-07-01", "1993-10-01")
 Q10_RANGE = ("1993-10-01", "1994-01-01")
 TOPN_LIMIT = 100
+EIGHT_TABLES = ["region", "nation", "supplier", "customer", "part", "partsupp",
+                "orders", "lineitem"]
+Q18_MIN_QTY = 300          # TPC-H's own threshold; the plan's default selects nothing
+Q14_RANGE = ("1995-09-01", "1995-10-01")
 
 
 def card_line() -> str:
@@ -331,6 +342,205 @@ def numpy_q22(a: dict) -> dict:
             "avgbal": [_half_up_div(s * 10 ** 4, n) if n else None]}
 
 
+def tpch8_arrays(cat) -> dict:
+    """Host numpy copies of the eight-table catalog's columns that the
+    numpy versions of Q2, Q9, Q13, Q14, Q16 and Q18 read, plus the string
+    dictionaries they decode."""
+    out = {}
+    for t in EIGHT_TABLES:
+        b = cat[t].block
+        for n, c in zip(b.names, b.columns):
+            out[n] = c.data.numpy()
+            if c.dictionary is not None:
+                out[n + "_dict"] = c.dictionary
+    return out
+
+
+def _key_table(keys, vals, fill=-1):
+    """Dense lookup table vals[key] for small non-negative int keys."""
+    import numpy as np
+
+    table = np.full(int(keys.max()) + 2 if len(keys) else 1, fill, dtype=np.int64)
+    table[keys] = vals
+    return table
+
+
+def _lookup(table, keys):
+    import numpy as np
+
+    safe = np.clip(keys, 0, len(table) - 1)
+    return np.where((keys >= 0) & (keys < len(table)), table[safe], -1)
+
+
+def numpy_q2(a: dict) -> dict:
+    """TPC-H Q2's shape over host arrays: partsupp rows of EUROPE's
+    suppliers, the minimum supply cost per part, the rows that reach it
+    for parts of size 15, top 100 by (s_acctbal desc, ps_partkey), ties
+    by partsupp row; every column the plan emits."""
+    import numpy as np
+
+    europe = a["r_name_dict"].index("EUROPE")
+    region_of_nation = _key_table(a["n_nationkey"], a["n_regionkey"])
+    s_ok = _lookup(_key_table(a["r_regionkey"], a["r_name"]),
+                   region_of_nation[a["s_nationkey"]]) == europe
+    supp_row = _key_table(a["s_suppkey"], np.arange(len(a["s_suppkey"])))
+    srow = _lookup(supp_row, a["ps_suppkey"])
+    m = srow >= 0
+    m[m] = s_ok[srow[m]]
+    pk, cost = a["ps_partkey"], a["ps_supplycost"]
+    min_cost = np.full(int(pk.max()) + 1, np.iinfo(np.int64).max, dtype=np.int64)
+    np.minimum.at(min_cost, pk[m], cost[m])
+    part_row = _key_table(a["p_partkey"], np.arange(len(a["p_partkey"])))
+    prow = _lookup(part_row, pk)
+    best = m & (cost == min_cost[pk]) & (prow >= 0)
+    best[best] = a["p_size"][prow[best]] == 15
+    rows = np.flatnonzero(best)
+    acct = a["s_acctbal"][srow[rows]]
+    rows = rows[np.lexsort((rows, pk[rows], -acct))][:TOPN_LIMIT]
+    sr, pr = srow[rows], prow[rows]
+    nk = a["s_nationkey"][sr]
+    nrow = _key_table(a["n_nationkey"], np.arange(len(a["n_nationkey"])))[nk]
+    rk = a["n_regionkey"][nrow]
+    rrow = _key_table(a["r_regionkey"], np.arange(len(a["r_regionkey"])))[rk]
+    names = {"n_name": a["n_name_dict"], "r_name": a["r_name_dict"],
+             "p_brand": a["p_brand_dict"]}
+    cols = {
+        "ps_partkey": pk[rows], "ps_suppkey": a["ps_suppkey"][rows],
+        "ps_availqty": a["ps_availqty"][rows], "ps_supplycost": cost[rows],
+        "s_suppkey": a["s_suppkey"][sr], "s_nationkey": nk,
+        "s_acctbal": a["s_acctbal"][sr], "n_nationkey": a["n_nationkey"][nrow],
+        "n_name": a["n_name"][nrow], "n_regionkey": rk,
+        "r_regionkey": a["r_regionkey"][rrow], "r_name": a["r_name"][rrow],
+        "ps_partkey_m": pk[rows], "min_cost": cost[rows],
+        "p_partkey": a["p_partkey"][pr], "p_size": a["p_size"][pr],
+        "p_brand": a["p_brand"][pr],
+    }
+    return {k: ([names[k][c] for c in v.tolist()] if k in names else v.tolist())
+            for k, v in cols.items()}
+
+
+def numpy_q9(a: dict) -> dict:
+    """TPC-H Q9's shape over host arrays: lineitem rows of parts of size
+    at most 25, expanded over every partsupp row with the same (partkey,
+    suppkey) (the pair is not unique), profit = extendedprice * (1 -
+    discount) - supplycost * quantity at scale 4, summed per (supplier
+    nation, order year), sorted by nation, then year descending."""
+    import numpy as np
+
+    size_of_part = _key_table(a["p_partkey"], a["p_size"])
+    li_ok = _lookup(size_of_part, a["l_partkey"])
+    li_ok = (li_ok >= 0) & (li_ok <= 25)
+    # partsupp rows grouped by (partkey, suppkey): the N:M expansion
+    ps_key = a["ps_partkey"] * (1 << 32) + a["ps_suppkey"]
+    order = np.argsort(ps_key, kind="stable")
+    skey = ps_key[order]
+    l_key = a["l_partkey"] * (1 << 32) + a["l_suppkey"]
+    lo = np.searchsorted(skey, l_key, side="left")
+    hi = np.searchsorted(skey, l_key, side="right")
+    cnt = np.where(li_ok, hi - lo, 0)
+    li = np.repeat(np.arange(len(l_key)), cnt)
+    first = np.repeat(lo, cnt)
+    offs = np.arange(len(li)) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    ps = order[first + offs]
+    nation = _lookup(_key_table(a["s_suppkey"], a["s_nationkey"]), a["l_suppkey"][li])
+    okeys = a["o_orderkey"]
+    pos = np.clip(np.searchsorted(okeys, a["l_orderkey"][li]), 0, len(okeys) - 1)
+    found = (okeys[pos] == a["l_orderkey"][li]) & (nation >= 0)
+    li, ps, nation, pos = li[found], ps[found], nation[found], pos[found]
+    amount = (a["l_extendedprice"][li] * (100 - a["l_discount"][li])
+              - a["ps_supplycost"][ps] * a["l_quantity"][li])
+    year = a["o_orderdate"][pos].astype("datetime64[D]").astype("datetime64[Y]")
+    year = year.astype(np.int64) + 1970
+    name_code = a["n_name"][_key_table(a["n_nationkey"], np.arange(25))[nation]]
+    uniq, inv = np.unique(np.stack([name_code, -year], 1), axis=0, return_inverse=True)
+    sums = np.zeros(len(uniq), dtype=np.int64)
+    np.add.at(sums, inv.reshape(-1), amount)
+    return {"nation": [a["n_name_dict"][c] for c in uniq[:, 0].tolist()],
+            "o_year": (-uniq[:, 1]).tolist(), "sum_profit": sums.tolist()}
+
+
+def numpy_q13(a: dict) -> dict:
+    """TPC-H Q13's shape over host arrays: per customer the number of its
+    orders whose priority is not 1-URGENT (0 for none: the left outer join
+    and count(o_orderkey)), then customers per count, sorted by (custdist
+    desc, c_count desc)."""
+    import numpy as np
+
+    urgent = a["o_orderpriority_dict"].index("1-URGENT")
+    keep = a["o_orderpriority"] != urgent
+    per = np.zeros(int(a["c_custkey"].max()) + 1, dtype=np.int64)
+    np.add.at(per, a["o_custkey"][keep], 1)
+    c_count = per[a["c_custkey"]]
+    counts, dist = np.unique(c_count, return_counts=True)
+    top = np.lexsort((-counts, -dist))
+    return {"c_count": counts[top].tolist(), "custdist": dist[top].tolist()}
+
+
+def numpy_q14(a: dict) -> dict:
+    """TPC-H Q14 over host arrays: revenue of lines shipped in September
+    1995, the share of parts whose brand is LIKE 'Brand#2%', as a
+    decimal(48,8) mantissa: half-up promo * 10^8 / total in Python ints."""
+    import numpy as np
+
+    lo, hi = (_days(d) for d in Q14_RANGE)
+    d = a["l_shipdate"]
+    prow = _lookup(_key_table(a["p_partkey"], np.arange(len(a["p_partkey"]))),
+                   a["l_partkey"])
+    m = (d >= lo) & (d < hi) & (prow >= 0)
+    rev = a["l_extendedprice"] * (100 - a["l_discount"])            # scale 4
+    brands = a["p_brand_dict"]
+    promo_code = np.array([b.startswith("Brand#2") for b in brands])
+    promo = m & promo_code[a["p_brand"][np.maximum(prow, 0)]]
+    total = int(rev[m].sum()) if m.any() else None
+    p = int(rev[promo].sum()) if promo.any() else None
+    if total is None or p is None or total == 0:
+        return {"promo_share": [None]}
+    return {"promo_share": [_half_up_div(p * 10 ** 8, total)]}
+
+
+def numpy_q16(a: dict) -> dict:
+    """TPC-H Q16's shape over host arrays: distinct suppliers per brand of
+    the partsupp rows of parts of size at most 25 (count_distinct),
+    sorted by (supplier_cnt desc, p_brand)."""
+    import numpy as np
+
+    prow = _lookup(_key_table(a["p_partkey"], np.arange(len(a["p_partkey"]))),
+                   a["ps_partkey"])
+    m = prow >= 0
+    m[m] = a["p_size"][prow[m]] <= 25
+    brand = a["p_brand"][prow[m]]
+    pairs = np.unique(np.stack([brand, a["ps_suppkey"][m]], 1), axis=0)
+    brands, cnt = np.unique(pairs[:, 0], return_counts=True)
+    names = a["p_brand_dict"]
+    top = sorted(range(len(brands)), key=lambda i: (-cnt[i], names[brands[i]]))
+    return {"p_brand": [names[brands[i]] for i in top],
+            "supplier_cnt": [int(cnt[i]) for i in top]}
+
+
+def numpy_q18(a: dict, min_qty: int = Q18_MIN_QTY) -> dict:
+    """TPC-H Q18 over host arrays: orders whose lines' quantity sums past
+    ``min_qty`` (a decimal(37,2): mantissa > min_qty * 100), joined to
+    their order and customer, top 100 by (sum_qty desc, o_orderdate),
+    ties by orders row."""
+    import numpy as np
+
+    okeys, sums = _group_sums(a["l_orderkey"], a["l_quantity"])
+    big = sums > min_qty * 100
+    okeys, sums = okeys[big], sums[big]
+    pos = np.searchsorted(a["o_orderkey"], okeys)
+    ok = (pos < len(a["o_orderkey"])) & (a["o_orderkey"][np.minimum(
+        pos, len(a["o_orderkey"]) - 1)] == okeys)
+    okeys, sums, pos = okeys[ok], sums[ok], pos[ok]
+    cust = a["o_custkey"][pos]
+    has_c = np.isin(cust, a["c_custkey"])
+    okeys, sums, pos, cust = okeys[has_c], sums[has_c], pos[has_c], cust[has_c]
+    odate = a["o_orderdate"][pos].astype(np.int64)
+    top = np.lexsort((pos, odate, -sums))[:TOPN_LIMIT]
+    return {"o_orderkey": okeys[top].tolist(), "o_custkey": cust[top].tolist(),
+            "o_orderdate": odate[top].tolist(), "l_orderkey": okeys[top].tolist(),
+            "sum_qty": sums[top].tolist(), "c_custkey": cust[top].tolist()}
+
+
 def numpy_topn(keys, payload: dict, limit: int) -> dict:
     """ORDER BY keys DESC LIMIT limit, ties by position: np.argpartition
     for the limit-th key, every row at least that large, then a stable
@@ -475,6 +685,113 @@ def time_pair(kernel, plain, reps: int):
     k2 = time_ms(kernel, reps)
     p2 = time_ms(plain, reps)
     return min(k1, k2), min(p1, p2)
+
+
+def eight_table_queries() -> list:
+    """(name, plan function) of the eight-table phase, in the order run:
+    the fifteen TPC-H queries of the slice and Q18 at TPC-H's threshold."""
+    from tiflash_tpu_torch.bench import tpch_queries as Q
+
+    out = [(f"q{n}", getattr(Q, f"q{n}_plan"))
+           for n in (2, 5, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18)]
+    out.append(("q18_300", lambda: Q.q18_plan(min_qty=Q18_MIN_QTY)))
+    out += [(f"q{n}", getattr(Q, f"q{n}_plan")) for n in (19, 20, 21)]
+    return out
+
+
+# one numpy version per mechanism the slice adds
+NUMPY8 = {"q2": numpy_q2, "q9": numpy_q9, "q13": numpy_q13, "q14": numpy_q14,
+          "q16": numpy_q16, "q18_300": numpy_q18}
+
+
+def eight_table_phase(card: str, sf: float = SF) -> None:
+    """Q2-Q21 and Q18 at threshold 300 on the eight-table catalog: each
+    through ``run_query`` on the CPU (with a spy on the two kernels'
+    branches), then on the card, bit-exact against the CPU run, six also
+    against numpy; the card's launches must equal what the CPU dispatch
+    predicts (none).  Prints each query's warm ``run_query`` median."""
+    import torch
+
+    from tiflash_tpu_torch.ops import aggregate as TA
+    from tiflash_tpu_torch.ops import stream_fuse as SF_
+    from tiflash_tpu_torch.ops.cuda import direct_agg as DA, stream_agg as SA
+    from tiflash_tpu_torch.runtime.executor import run_query
+    from tiflash_tpu_torch.storage.tpch import generate_tpch
+
+    t0 = time.perf_counter()
+    cat8 = generate_tpch(sf=sf, seed=SEED)
+    print(f"eight-table catalog sf{sf}: " + ", ".join(
+        f"{t} {cat8[t].row_count}" for t in EIGHT_TABLES)
+        + f" rows in {time.perf_counter() - t0:.1f} s")
+    queries = eight_table_queries()
+
+    # CPU runs; the spy counts calls of the direct_agg kernel's branch and
+    # of the fused path, which launch a kernel on the card
+    t0 = time.perf_counter()
+    cpu8, cpu_retries, predicted = {}, {}, {}
+    branch_calls = []
+    real_branch = TA._accumulate_direct_kernel
+
+    def spy(*args):
+        branch_calls.append(1)
+        return real_branch(*args)
+
+    TA._accumulate_direct_kernel = spy
+    try:
+        cpu_tables = cat8.blocks("cpu")
+        for name, plan_fn in queries:
+            n0, f0 = len(branch_calls), SF_.FUSE_STATS["count"]
+            out, summary = run_query(plan_fn(), cpu_tables)
+            cpu8[name] = block_result(out)
+            cpu_retries[name] = summary.retries
+            predicted[name] = (len(branch_calls) - n0, SF_.FUSE_STATS["count"] - f0)
+        del cpu_tables
+    finally:
+        TA._accumulate_direct_kernel = real_branch
+    a8 = tpch8_arrays(cat8)
+    for name, fn in NUMPY8.items():
+        want = fn(a8)
+        if cpu8[name][0] != want:
+            raise AssertionError(f"{name}: port CPU run != numpy\n{cpu8[name][0]}\n{want}")
+    del a8
+    print(f"cpu runs of {len(queries)} queries, {', '.join(NUMPY8)} equal numpy "
+          f"({time.perf_counter() - t0:.1f} s); kernel branches and fused runs "
+          f"predicted: {predicted}")
+
+    gpu8 = cat8.blocks("cuda")
+    torch.cuda.synchronize()
+    SA.LAUNCHES = DA.LAUNCHES = 0
+    for name, plan_fn in queries:
+        d0, s0, f0 = DA.LAUNCHES, SA.LAUNCHES, SF_.FUSE_STATS["count"]
+        out, summary = run_query(plan_fn(), gpu8)
+        torch.cuda.synchronize()
+        direct, stream, fused = (DA.LAUNCHES - d0, SA.LAUNCHES - s0,
+                                 SF_.FUSE_STATS["count"] - f0)
+        want_branch, want_fused = predicted[name]
+        if ((direct > 0) != (want_branch > 0) or fused != want_fused
+                or (stream > 0) != (want_fused > 0)):
+            raise AssertionError(
+                f"{name}: direct_agg launches {direct}, stream_agg launches {stream}, "
+                f"fused runs {fused}; the CPU dispatch predicts {want_branch} "
+                f"direct_agg branch calls and {want_fused} fused runs")
+        if summary.device != "cuda:0" or summary.retries != cpu_retries[name]:
+            raise AssertionError(f"{name}: ran on {summary.device} with "
+                                 f"{summary.retries} retries (CPU: {cpu_retries[name]})")
+        got = block_result(out)
+        if got != cpu8[name]:
+            raise AssertionError(f"{name}: cuda result != cpu result\n{got}\n{cpu8[name]}")
+        checked = " and numpy" if name in NUMPY8 else ""
+        print(f"{name} sf{sf} on cuda: {summary.result_rows} rows, {summary.retries} "
+              f"retries {summary.overflow_nodes}, direct_agg launches {direct}, "
+              f"stream_agg launches {stream}, bit-exact vs port CPU run{checked}")
+        if name in ("q13", "q14", "q18_300"):
+            print(f"  {name} rows: {got[0]}")
+    for name, plan_fn in queries:
+        plan = plan_fn()
+        q_ms = time_ms(lambda: run_query(plan, gpu8), WARM_RUNS)
+        print(f"{name} sf{sf} run_query median {q_ms:.3f} ms over {WARM_RUNS} warm "
+              f"runs, {cpu_retries[name]} retries each [{card}]")
+    del gpu8
 
 
 def main() -> int:
@@ -777,6 +1094,9 @@ def main() -> int:
     q_ms = time_ms(lambda: run_query(plan, big), WARM_RUNS)
     print(f"topn_100m run_query median {q_ms:.3f} ms over {WARM_RUNS} warm runs [{card}]")
     del big
+
+    # ---- 7. Q2-Q21 at SF1 on the eight-table catalog ---------------------------
+    eight_table_phase(card)
 
     print(json.dumps({"kernels": [{
         "name": "stream_agg",

@@ -150,10 +150,11 @@ def test_unported_aggregates_raise():
     import dataclasses as dc
 
     _, tb = _block(1, 4)
+    # min/max and count_distinct are ported (tests/test_torch_functions_more.py)
     with pytest.raises(NotImplementedError):
-        t_agg(tb, ["g"], [TAgg("min", "y", "m")])
+        t_agg(tb, ["g"], [TAgg("quantile", "y", "m")])
     with pytest.raises(NotImplementedError):
-        t_agg(tb, ["y"], [TAgg("count_distinct", "x", "d")])
+        t_agg(tb, ["y"], [TAgg("var_pop", "x", "d")])
     # keys the block is clustered on take the stream method, whose float
     # sums come with the functions slice
     import torch

@@ -134,13 +134,21 @@ def test_normalize_join_keys_matches_reference(case):
 
 
 def test_keys_wider_than_63_bits_raise():
+    """Keys past 63 bits join on the reference's hashes (bit-equal) with
+    re-verification; the join kinds the reference cannot verify (left
+    outer among them) still raise."""
     n = 8
     cols = {"a": column_from_numpy(np.arange(n), INT64),
             "b": column_from_numpy(np.arange(n), INT64)}
-    t = _port({"t": JBlock.from_dict(cols)})["t"]
+    jt = JBlock.from_dict(cols)
+    t = _port({"t": jt})["t"]
     assert TJ.join_keys_need_verify([t["a"], t["b"]], [t["a"], t["b"]])
-    with pytest.raises(NotImplementedError):
-        TJ.normalize_join_keys([t["a"], t["b"]], [t["a"], t["b"]])
+    got = TJ.normalize_join_keys([t["a"], t["b"]], [t["a"], t["b"]])
+    want = JJ.normalize_join_keys([jt["a"], jt["b"]], [jt["a"], jt["b"]])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_np(g), _np(w))
+    with pytest.raises(NotImplementedError, match="wider than 63 bits"):
+        TJ.hash_join(t, t, ["a", "b"], ["a", "b"], kind="left")
 
 
 @pytest.mark.parametrize("capacity", [None, 700, 150], ids=["unique", "general", "overflow"])
@@ -276,8 +284,8 @@ def test_semi_and_anti_join_nodes_match_reference(kind):
     assert ts.plan_text == js.plan_text and ts.retries == js.retries == 0
 
 
-@pytest.mark.parametrize("kind", ["left_outer", "right_outer", "full_outer",
-                                  "anti_null_aware", "left_outer_semi"])
+@pytest.mark.parametrize("kind", ["left_outer_semi_null_aware", "right_outer",
+                                  "full_outer", "anti_null_aware", "left_outer_semi"])
 def test_other_join_kinds_raise(kind):
     _, t = _tables(seed=7)
     with pytest.raises(NotImplementedError, match="later|slice"):

@@ -218,6 +218,20 @@ class Block:
         cols = tuple(c.take(indices, fill_invalid) for c in self.columns)
         return Block(names=self.names, columns=cols, sel=None)
 
+    def compact(self) -> "Block":
+        """Pack live rows to the front, in order (same capacity); rows at
+        or past the live count are dead."""
+        if self.sel is None:
+            return self
+        from ..ops.merge import flagged_positions
+
+        n = self.capacity
+        count = torch.sum(self.sel, dtype=torch.int32)
+        out = self.take(flagged_positions(self.sel, n).clamp(min=0))
+        out = dataclasses.replace(out, clustered_by=self.clustered_by)
+        return out.with_sel(torch.arange(n, dtype=torch.int32,
+                                         device=self.sel.device) < count)
+
     def to_pylists(self) -> Dict[str, list]:
         """Decode live rows to python lists (host copy; tests/output)."""
         sel = None if self.sel is None else self.sel.cpu().numpy()

@@ -1,14 +1,17 @@
-"""Expression evaluation over a Block: the TPC-H Q1/Q6 slice.
+"""Expression evaluation over a Block: the slice TPC-H's 22 queries reach.
 
 Counterpart of ``tiflash_tpu/expr/compile.py``.  Evaluation is eager:
 each call runs torch operations on the block's tensors.
 
-String predicates against literals are rewritten into dictionary-code
-space (sorted dictionaries make codes order-preserving), and literals are
-typed against the operand they meet: a date text against a DATE column
-becomes days since the epoch, a float against a decimal column becomes an
-exact decimal mantissa.  Casts, LIKE and the host-LUT string functions
-come with the functions slice of the port.
+String predicates against literals (the comparisons and IN) are rewritten
+into dictionary-code space (sorted dictionaries make codes
+order-preserving); ``LIKE`` with a literal pattern matches each entry of
+the column's dictionary on the host and gathers the per-code BOOL table
+on the column's device.  Literals are typed against the operand they
+meet: a date text against a DATE column becomes days since the epoch, a
+float against a decimal column becomes an exact decimal mantissa.  Casts,
+LIKE with a column pattern and the other host-LUT string functions come
+with the functions slice of the port.
 """
 
 from __future__ import annotations
@@ -219,15 +222,13 @@ class ExprEvaluator:
 
     def _call(self, call: Call) -> Column:
         name = call.func
+        if name == "like":
+            return self._like(call)
         # string predicate against literal(s): rewrite to code space
         if name in (_ORDER_CMPS | _EQ_CMPS | {"in"}):
             rewritten = self._maybe_string_predicate(call)
             if rewritten is not None:
                 return rewritten
-        if name == "in":
-            raise NotImplementedError(
-                "IN over non-string columns is not ported yet: it comes "
-                "with the functions slice of the port")
         # evaluate non-literals first so literals get operand context
         ctx: Optional[Column] = None
         evaluated: Dict[int, Column] = {}
@@ -256,6 +257,30 @@ class ExprEvaluator:
                 res = Column(res.data, res.validity, res.dtype,
                              res.dictionary, stats=st)
         return res
+
+    def _like(self, call: Call) -> Column:
+        """LIKE against a literal pattern: a host match over the column's
+        dictionary, then one gather of the per-code BOOL table.  An
+        optional third argument is the escape character."""
+        target = self.evaluate(call.args[0])
+        pat_expr = call.args[1]
+        escape = "\\"
+        if len(call.args) > 2:
+            esc_expr = call.args[2]
+            assert isinstance(esc_expr, Literal), "LIKE escape must be a literal"
+            v = esc_expr.value
+            escape = chr(int(v)) if isinstance(v, int) else str(v)
+        if not isinstance(pat_expr, Literal):
+            raise NotImplementedError(
+                "LIKE with a column pattern is not ported yet: it comes with "
+                "the functions slice of the port")
+        regex = re.compile(_like_to_regex(pat_expr.value, escape), re.S)
+        d = target.dictionary or ()
+        lut = torch.tensor([regex.fullmatch(s) is not None for s in d] or [False],
+                           dtype=torch.bool, device=self.device)
+        data = lut[target.data.clamp(0, lut.shape[0] - 1).long()]
+        return Column(data, target.validity,
+                      DataType(TypeKind.BOOL, target.dtype.nullable))
 
     def _maybe_string_predicate(self, call: Call) -> Optional[Column]:
         """Comparisons/IN where one side is a string column and the other(s)
@@ -314,5 +339,26 @@ class ExprEvaluator:
         return fn.evaluate(pair, out)
 
 
+def _like_to_regex(pattern: str, escape: str = "\\") -> str:
+    """SQL LIKE pattern -> Python regex: ``%`` any run, ``_`` one
+    character, ``escape`` makes the next character literal."""
+    out = []
+    i = 0
+    while i < len(pattern):
+        c = pattern[i]
+        if c == escape and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        if c == "%":
+            out.append(".*")
+        elif c == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(c))
+        i += 1
+    return "".join(out)
+
+
 __all__ = ["ExprEvaluator", "infer_literal_dtype", "_float_to_decimal",
-           "_literal_days"]
+           "_literal_days", "_like_to_regex"]

@@ -1,18 +1,24 @@
-"""Scalar function registry: the TPC-H Q1/Q6 slice.
+"""Scalar function registry: the slice TPC-H's 22 queries reach.
 
 Counterpart of ``tiflash_tpu/expr/functions.py``.  Ported here:
 
-- ``plus``/``minus``/``multiply`` type inference and evaluation on
-  integer, float and narrow (precision <= 18) decimal operands — the
-  reference's ``_arith_eval`` narrow path;
-- the six comparisons, ``and``/``or``/``not`` (three-valued logic);
+- ``plus``/``minus``/``multiply``/``divide`` type inference and
+  evaluation on integer, float, narrow (precision <= 18) and wide
+  decimal operands, the reference's ``_arith_eval``: wide operands in
+  multi-limb arithmetic (``core/wide.py``), decimal division at TiDB's
+  result scale (``DIV_PRECISION_INCREMENT``) rounding half up, by exact
+  long division wherever the scaled dividend can pass int64, and NULL on
+  a zero divisor;
+- the six comparisons, wide-decimal operands included (limb-wise, narrow
+  and wide operands mixed), ``and``/``or``/``not`` (three-valued logic)
+  and ``in`` (MySQL's three-valued rule);
 - ``propagate_stats``, which keeps expression columns (revenue =
   extendedprice * (1 - discount)) on the narrow-stored sum path;
 - ``_div_round_half_up`` (TiDB decimal rounding, used by avg);
 - ``year`` over DATE and DATETIME (TPC-H Q7's ``year(l_shipdate)``).
 
-Every other function, string operands in arithmetic and wide-decimal
-operands raise ``NotImplementedError``: they belong to the functions
+Every other function, string operands in arithmetic, casts and unsigned
+compares raise ``NotImplementedError``: they belong to the functions
 slice of the port.
 """
 
@@ -23,6 +29,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..core import wide as W
 from ..core.block import Column
 from ..core.dtypes import (
     ZERO_DATE_DAYS,
@@ -33,6 +40,8 @@ from ..core.dtypes import (
 )
 
 _LATER = "is not ported yet: it comes with the functions slice of the port"
+
+DIV_PRECISION_INCREMENT = 4  # TiDB div_precision_increment default
 
 
 def _pow10(k: int) -> int:
@@ -195,6 +204,18 @@ def _arith_infer(op: str):
             else:
                 prec = min(18, (a.precision or 18) + (b.precision or 18))
             return Decimal(prec, sa + sb, a.nullable or b.nullable)
+        if op == "divide":
+            if a.is_decimal or (a.is_integer and (b.is_decimal or b.is_integer)):
+                sa = a.scale if a.is_decimal else 0
+                if a.is_wide_decimal:
+                    # DivDecimalInferer, capped at the widest precision
+                    sb = b.scale if b.is_decimal else 0
+                    return Decimal(
+                        min(a.precision + sb + DIV_PRECISION_INCREMENT,
+                            W.MAX_WIDE_PRECISION),
+                        min(sa + DIV_PRECISION_INCREMENT, 30), True)
+                return Decimal(18, sa + DIV_PRECISION_INCREMENT, True)
+            return DataType(TypeKind.FLOAT64, True)
         return common_numeric_type(a, b)
 
     return infer
@@ -210,41 +231,136 @@ def _align_decimal_pair(a: Column, b: Column) -> Tuple[torch.Tensor, torch.Tenso
     return da, db, s
 
 
+def _as_wide(c: Column, limbs: int = 2) -> torch.Tensor:
+    """Column -> L-limb tensor, widening narrow-stored or plain mantissas
+    and re-limbing other wides."""
+    if c.data.ndim == 2:
+        return W.resize_wide(c.data, limbs)[0]
+    return W.widen_i64_to(c.data.to(torch.int64), limbs)
+
+
+def _wide_align(a: Column, b: Column):
+    """Both operands as same-limb-count mantissas at the common (max)
+    scale; the limb count is the wider operand's.  A wide type may be
+    stored narrow (1-D), as ``_wide_rewrite`` leaves sums it proves fit."""
+    sa = a.dtype.scale if a.dtype.is_decimal else 0
+    sb = b.dtype.scale if b.dtype.is_decimal else 0
+    s = max(sa, sb)
+    limbs = max(2, a.dtype.decimal_limbs if a.dtype.is_decimal else 0,
+                b.dtype.decimal_limbs if b.dtype.is_decimal else 0,
+                a.data.shape[-1] if a.data.ndim == 2 else 0,
+                b.data.shape[-1] if b.data.ndim == 2 else 0)
+    wa, _ = W.wide_scale_up(_as_wide(a, limbs), s - sa)
+    wb, _ = W.wide_scale_up(_as_wide(b, limbs), s - sb)
+    return wa, wb, s
+
+
+def _divide_exact(a: Column, b: Column, out: DataType,
+                  validity: Optional[torch.Tensor]) -> Column:
+    """Decimal division by exact long division (``core/wide.py``), for
+    wide operands or a narrow dividend whose scale shift can pass 18
+    digits.  The limb count follows the scaled dividend's digits."""
+    sa = a.dtype.scale if a.dtype.is_decimal else 0
+    sb = b.dtype.scale if b.dtype.is_decimal else 0
+    shift = out.scale - sa + sb
+    assert shift >= 0, (out.scale, sa, sb)
+    L = max(2, -(-((a.dtype.precision or 18) + shift) // 18),
+            a.data.shape[-1] if a.data.ndim == 2 else 0,
+            b.data.shape[-1] if b.data.ndim == 2 else 0)
+    w, _ = W.wide_scale_up(_as_wide(a, L), shift)
+    den_w = _as_wide(b, L)
+    nonzero = torch.any(den_w != 0, dim=-1)
+    one = W.widen_i64_to(torch.ones(den_w.shape[:-1], dtype=torch.int64,
+                                    device=den_w.device), L)
+    den_w = torch.where(nonzero[..., None], den_w, one)
+    data = W.wide_div_wide_round_half_up(w, den_w)
+    validity = nonzero if validity is None else (validity & nonzero)
+    if out.decimal_limbs >= 2:
+        if data.shape[-1] != out.decimal_limbs:
+            data, ovf = W.resize_wide(data, out.decimal_limbs)
+            # a quotient past the type's precision is NULL (the reference
+            # engine errors; a shape-static program cannot throw)
+            validity = validity & ~ovf
+        return Column(data, validity, out)
+    # a quotient past int64 is not flagged here, as in the reference
+    val, _fits = W.narrow_i64(W.resize_wide(data, 2)[0])
+    return Column(val, validity, out)
+
+
 def _arith_eval(op: str):
     def evaluate(cols: Sequence[Column], out: DataType) -> Column:
         a, b = cols
         if a.dtype.is_string or b.dtype.is_string:
             raise NotImplementedError(f"string operands of {op} {_LATER}")
-        if (a.dtype.is_wide_decimal or b.dtype.is_wide_decimal) and out.is_decimal:
-            raise NotImplementedError(f"wide-decimal operands of {op} {_LATER}")
         validity = _and_validity([a, b])
+        wide_operand = ((a.dtype.is_wide_decimal or b.dtype.is_wide_decimal)
+                        and out.is_decimal)
+        if wide_operand and op in ("plus", "minus"):
+            wa, wb, s = _wide_align(a, b)
+            if out.scale > s:
+                wa, _ = W.wide_scale_up(wa, out.scale - s)
+                wb, _ = W.wide_scale_up(wb, out.scale - s)
+            data = W.wide_add(wa, wb) if op == "plus" else W.wide_sub(wa, wb)
+            return Column(data, validity, out)
+        if wide_operand and op == "multiply":
+            sa = a.dtype.scale if a.dtype.is_decimal else 0
+            sb = b.dtype.scale if b.dtype.is_decimal else 0
+            data, ovf = W.wide_mul(_as_wide(a), _as_wide(b))
+            extra = (sa + sb) - out.scale
+            if extra > 0:
+                p10, _ = W.wide_scale_up(
+                    W.widen_i64(torch.ones_like(W.wide_hi(data))), extra)
+                data = W.wide_div_wide_round_half_up(data, p10)
+            # a product past precision 38 is NULL (the reference engine
+            # errors; a shape-static program cannot throw)
+            validity = ~ovf if validity is None else (validity & ~ovf)
+            return Column(data, validity, out)
+        if op == "divide" and out.is_decimal and (
+                a.dtype.is_wide_decimal or b.dtype.is_wide_decimal
+                or (a.dtype.precision or 18) + out.scale
+                - (a.dtype.scale if a.dtype.is_decimal else 0)
+                + (b.dtype.scale if b.dtype.is_decimal else 0) > 18):
+            return _divide_exact(a, b, out, validity)
         if out.is_decimal:
             if op in ("plus", "minus"):
                 da, db, s = _align_decimal_pair(a, b)
                 da = da * _pow10(out.scale - s)
                 db = db * _pow10(out.scale - s)
                 data = da + db if op == "plus" else da - db
-            else:  # multiply
+            elif op == "multiply":
                 sa = a.dtype.scale if a.dtype.is_decimal else 0
                 sb = b.dtype.scale if b.dtype.is_decimal else 0
                 data = a.data.to(torch.int64) * b.data.to(torch.int64)
                 extra = (sa + sb) - out.scale
                 if extra > 0:
                     data = _div_round_half_up(data, _pow10(extra))
+            else:  # divide: result scale s_a + 4, half up, NULL on /0
+                sa = a.dtype.scale if a.dtype.is_decimal else 0
+                sb = b.dtype.scale if b.dtype.is_decimal else 0
+                num = a.data.to(torch.int64) * _pow10(out.scale - sa + sb)
+                den = b.data.to(torch.int64)
+                nonzero = den != 0
+                data = _div_round_half_up(num, torch.where(nonzero, den,
+                                                           torch.ones_like(den)))
+                validity = nonzero if validity is None else (validity & nonzero)
             return Column(data, validity, out)
         da, db = _operand_values(a, out), _operand_values(b, out)
         if op == "plus":
             data = da + db
         elif op == "minus":
             data = da - db
-        else:
+        elif op == "multiply":
             data = da * db
+        else:  # divide: NULL on a zero divisor
+            nonzero = db != 0
+            data = da / torch.where(nonzero, db, torch.ones_like(db))
+            validity = nonzero if validity is None else (validity & nonzero)
         return Column(data.to(out.torch_dtype), validity, out)
 
     return evaluate
 
 
-for _op in ("plus", "minus", "multiply"):
+for _op in ("plus", "minus", "multiply", "divide"):
     register(_op)(lambda _op=_op: (_arith_infer(_op), _arith_eval(_op)))
 
 
@@ -276,7 +392,20 @@ def _cmp_eval(op: str):
         elif a.dtype.is_string or b.dtype.is_string:
             raise NotImplementedError(f"mixed string compare {_LATER}")
         elif a.dtype.is_wide_decimal or b.dtype.is_wide_decimal:
-            raise NotImplementedError(f"wide-decimal compare {_LATER}")
+            # limb-wise: lower limbs are in [0, 10^18), so (hi, ..., lo)
+            # order is lexicographic
+            wa, wb, _ = _wide_align(a, b)
+            lt = W.wide_cmp_lt(wa, wb)
+            eq = W.wide_eq(wa, wb)
+            data = {
+                "equals": eq,
+                "not_equals": ~eq,
+                "less": lt,
+                "less_or_equals": lt | eq,
+                "greater": ~(lt | eq),
+                "greater_or_equals": ~lt,
+            }[op]
+            return Column(data, validity, out)
         elif {a.dtype.kind, b.dtype.kind} == {TypeKind.DATE,
                                               TypeKind.DATETIME}:
             def as_us(c):
@@ -306,6 +435,31 @@ def _cmp_infer(ts: Sequence[DataType]) -> DataType:
 
 for _op in _CMP_FNS:
     register(_op)(lambda _op=_op: (_cmp_infer, _cmp_eval(_op)))
+
+
+@register("in")
+def _in():
+    def infer(ts):
+        return DataType(TypeKind.BOOL, any(t.nullable for t in ts))
+
+    def evaluate(cols, out):
+        # MySQL's three-valued IN: TRUE on a match; otherwise NULL if the
+        # probe or any list element is NULL, else FALSE
+        a = cols[0]
+        acc = None
+        some_null = torch.zeros((), dtype=torch.bool, device=a.data.device)
+        for c in cols[1:]:
+            eq = REGISTRY["equals"].evaluate([a, c], DataType(TypeKind.BOOL))
+            hit = eq.data if c.validity is None else (eq.data & c.validity)
+            acc = hit if acc is None else (acc | hit)
+            if c.validity is not None:
+                some_null = some_null | ~c.validity
+        validity = acc | ~some_null
+        if a.validity is not None:
+            validity = validity & a.validity
+        return Column(acc, validity, out)
+
+    return infer, evaluate
 
 
 # ---------------------------------------------------------------------------
@@ -416,5 +570,5 @@ def _register_date_part(name: str, part: int):
 _register_date_part("year", 0)
 
 
-__all__ = ["get_function", "propagate_stats",
+__all__ = ["get_function", "propagate_stats", "DIV_PRECISION_INCREMENT",
            "_div_round_half_up", "REGISTRY"]

@@ -17,9 +17,17 @@ Counterpart of ``tiflash_tpu/ops/aggregate.py``.  Ported here:
   ``direct_agg`` kernel branch (``ops/cuda/direct_agg.py``) and its
   segment sub-method.
 
-Supported aggregates are sum, count and avg (the stream method: over
-fixed-point arguments).  The other aggregate functions come with the
-functions slice of the port.
+Supported aggregates are sum, count, avg, min, max and count_distinct
+on every method (the stream method sums fixed-point arguments only).
+``count_distinct`` marks the first live row of each distinct (group
+keys, argument) pair: the reference's ``_distinct_first_flags``, a
+stable sort and a boundary compare, scattered back to row order; the
+sort method with one unfiltered count_distinct sorts its argument as a
+trailing key instead.  Per-group min/max is a ``scatter_reduce_``
+(``amin``/``amax``) where the reference takes a sorted segmented scan
+(``ops/segments.py``, a TPU scatter workaround); the integers are the
+same.  The other aggregate functions come with the functions slice of
+the port.
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ from ..core.dtypes import (
     UINT64,
 )
 
-_SUPPORTED = ("sum", "count", "avg")
+_SUPPORTED = ("sum", "count", "avg", "min", "max", "count_distinct")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,8 +100,8 @@ def _check_supported(aggs: Sequence[AggDesc]) -> None:
         if a.func not in _SUPPORTED or a.distinct:
             raise NotImplementedError(
                 f"aggregate {a.func}{' distinct' if a.distinct else ''} is "
-                "not ported yet: count_distinct, quantile, group_concat and "
-                "the rest come with the functions slice of the port")
+                "not ported yet: quantile, group_concat and the rest come "
+                "with the functions slice of the port")
 
 
 # ---------------------------------------------------------------------------
@@ -131,13 +139,26 @@ def _wide_rewrite(block: Block, aggs: Sequence[AggDesc]):
         wide_mul_pow10,
     )
 
+    def _is_wide2(c: Column) -> bool:
+        return c.dtype.is_wide_decimal and c.data.ndim == 2
+
     relevant = [
         a for a in aggs
         if a.func in ("sum", "avg") and a.arg is not None
         and block[a.arg].dtype.is_decimal
         and agg_result_dtype(a.func, block[a.arg].dtype).is_wide_decimal
     ]
-    if not relevant:
+    minmax = [
+        a for a in aggs
+        if a.func in ("min", "max") and a.arg is not None
+        and _is_wide2(block[a.arg])
+    ]
+    for a in aggs:
+        if (a.arg is not None and _is_wide2(block[a.arg])
+                and a.func not in ("sum", "avg", "count", "min", "max")):
+            raise NotImplementedError(
+                f"{a.func} over a two-limb wide-decimal column")
+    if not relevant and not minmax:
         return None
 
     rows = block.capacity
@@ -146,6 +167,23 @@ def _wide_rewrite(block: Block, aggs: Sequence[AggDesc]):
     skip: set = set()
     assemble: dict = {}
     for a in aggs:
+        if a in minmax:
+            # min/max over a two-limb column: aggregate its int64 rank in
+            # a stable limb-wise sort, then gather the value back by rank
+            from .sort import lexsort_stable
+
+            col = block[a.arg]
+            n = col.data.shape[0]
+            perm = lexsort_stable([col.data[:, j] for j in range(col.data.shape[-1])])
+            ranks = torch.empty(n, dtype=torch.int64, device=perm.device)
+            ranks[perm] = torch.arange(n, dtype=torch.int64, device=perm.device)
+            nm = f"__wm__{a.name}"
+            out_block = out_block.with_column(nm, Column(ranks, col.validity, INT64))
+            res_nm = f"__wmr__{a.name}"
+            aggs2.append(AggDesc(a.func, nm, res_nm, a.filter_col))
+            assemble[res_nm] = ("rank_gather", a, col.data[perm],
+                                agg_result_dtype(a.func, col.dtype))
+            continue
         if a not in relevant:
             aggs2.append(a)
             continue
@@ -198,6 +236,13 @@ def _wide_rewrite(block: Block, aggs: Sequence[AggDesc]):
                 names.append(nm)
                 cols.append(Column(c.data, c.validity, c.dtype,
                                    stats=(-spec[1], spec[1])))
+                continue
+            if spec[0] == "rank_gather":
+                _, a, sorted_w, rdt = spec
+                c = d[nm]
+                idx = c.data.clamp(0, sorted_w.shape[0] - 1).long()
+                names.append(a.name)
+                cols.append(Column(sorted_w[idx], c.validity, rdt))
                 continue
             _, a, sum_names, cnt_name, shift, rdt = spec
             validity = d[sum_names[0]].validity
@@ -279,6 +324,75 @@ DIRECT_DOMAIN_LIMIT = 4096
 MASKED_DOMAIN_LIMIT = 64
 
 
+# ---------------------------------------------------------------------------
+# segmented reductions and distinct flags
+# ---------------------------------------------------------------------------
+
+
+def _identity_for(func: str, dtype: DataType):
+    """The identity of ``func`` in the column's physical dtype."""
+    phys = dtype.torch_dtype
+    if func == "min":
+        return float("inf") if dtype.is_float else torch.iinfo(phys).max
+    if func == "max":
+        return float("-inf") if dtype.is_float else torch.iinfo(phys).min
+    return 0
+
+
+def _segment_reduce(func: str, vals: torch.Tensor, idx: torch.Tensor,
+                    num_segments: int, ident) -> torch.Tensor:
+    """Per-segment min or max of ``vals`` by segment ids ``idx`` (empty
+    segments hold ``ident``)."""
+    acc = torch.full((num_segments,), ident, dtype=vals.dtype, device=vals.device)
+    reduce = {"min": "amin", "max": "amax"}[func]
+    return acc.scatter_reduce_(0, idx, vals, reduce=reduce, include_self=True)
+
+
+def _distinct_first_flags(block: Block, keys: Sequence[str], arg: str,
+                          live: torch.Tensor) -> torch.Tensor:
+    """Bool row mask: True on the first live occurrence of each
+    (group keys, arg) pair, in row order: a stable sort on (dead last,
+    keys, arg), a compare with the previous sorted row, scattered back."""
+    from .sort import lexsort_stable
+
+    operands: List[torch.Tensor] = [~live]
+    for name in list(keys) + [arg]:
+        c = block[name]
+        if c.validity is not None:
+            operands.append(~c.validity)
+            # NULL slots carry arbitrary data (join payloads): zero them so
+            # all NULLs compare equal
+            operands.append(torch.where(c.validity, c.data, torch.zeros_like(c.data)))
+        else:
+            operands.append(c.data)
+    perm = lexsort_stable(operands)
+    n = block.capacity
+    neq = torch.zeros(n, dtype=torch.bool, device=live.device)
+    for op in operands:
+        arr = op[perm]
+        neq |= arr != torch.roll(arr, 1)
+    neq[:1] = True
+    flags = torch.empty_like(neq)
+    flags[perm] = neq
+    return flags
+
+
+def _compute_distinct_flags(block: Block, keys: Sequence[str],
+                            aggs: Sequence[AggDesc], live: torch.Tensor) -> dict:
+    """Per count_distinct aggregate, its first-occurrence row flags over
+    the rows passing its filter."""
+    out = {}
+    for a in aggs:
+        if a.func == "count_distinct":
+            out[a.name] = _distinct_first_flags(block, keys, a.arg,
+                                                _agg_live(block, a, live))
+    return out
+
+
+def _masked_eligible(aggs: Sequence[AggDesc]) -> bool:
+    return all(a.func in ("sum", "count", "avg", "min", "max") for a in aggs)
+
+
 @dataclasses.dataclass
 class AggregateResult:
     block: Block            # group keys + agg outputs; sel marks live slots
@@ -321,10 +435,13 @@ def _accumulate(
     gids: torch.Tensor,
     live: torch.Tensor,
     num_slots: int,
+    distinct_flags: Optional[dict] = None,
 ) -> List[Tuple[str, Column]]:
-    """Segment sub-method: every aggregate as an ``index_add_`` into
-    ``num_slots`` dense slots plus a trailing trash slot, where dead rows
-    (``gids == num_slots``) land."""
+    """Segment sub-method: every aggregate as an ``index_add_`` (min/max a
+    ``scatter_reduce_``) into ``num_slots`` dense slots plus a trailing
+    trash slot, where dead rows (``gids == num_slots``) land.
+    ``distinct_flags`` holds, per count_distinct, its first-occurrence
+    row flags in the block's row order."""
     idx = gids.long()
 
     def segsum(vals: torch.Tensor) -> torch.Tensor:
@@ -341,11 +458,25 @@ def _accumulate(
     for a in aggs:
         col = block[a.arg] if a.arg is not None else None
         base = _agg_live(block, a, live)
+        if a.func == "count_distinct":
+            cnt = nn_count(col, base & distinct_flags[a.name])
+            out.append((a.name, Column(cnt, None, INT64)))
+            continue
         cnt = nn_count(col, base)
         if a.func == "count":
             out.append((a.name, Column(cnt, None, INT64)))
             continue
         valid_row = base if col.validity is None else (base & col.validity)
+        if a.func in ("min", "max"):
+            rdt = agg_result_dtype(a.func, col.dtype)
+            ident = _identity_for(a.func, col.dtype)
+            vals = torch.where(valid_row, col.data,
+                               torch.full((), ident, dtype=col.data.dtype,
+                                          device=live.device))
+            red = _segment_reduce(a.func, vals, idx, num_slots + 1, ident)[:num_slots]
+            out.append((a.name, Column(red.to(rdt.torch_dtype), cnt > 0, rdt,
+                                       col.dictionary)))
+            continue
         acc_dt = torch.float64 if col.dtype.is_float else torch.int64
         vals = torch.where(valid_row, col.data.to(acc_dt),
                            torch.zeros((), dtype=acc_dt, device=live.device))
@@ -396,6 +527,20 @@ def _accumulate_masked(
         cnts = memo_cnts[key]
         if a.func == "count":
             out.append((a.name, Column(cnts, None, INT64)))
+            continue
+        if a.func in ("min", "max"):
+            rdt = agg_result_dtype(a.func, col.dtype)
+            ident = torch.full((), _identity_for(a.func, col.dtype),
+                               dtype=col.data.dtype, device=live.device)
+            red_fn = torch.amin if a.func == "min" else torch.amax
+
+            def reduce_slot(s, _col=col, _valid=valid, _ident=ident, _fn=red_fn):
+                vals = torch.where(slot_masks[s] & _valid, _col.data, _ident)
+                return _fn(vals) if vals.numel() else _ident
+
+            reds = per_slot(reduce_slot)
+            out.append((a.name, Column(reds.to(rdt.torch_dtype), cnts > 0, rdt,
+                                       col.dictionary)))
             continue
         if key not in memo_sums:
             acc_dt = torch.float64 if col.dtype.is_float else torch.int64
@@ -491,7 +636,8 @@ def aggregate_direct(
     slot_ids, domain = slots_domain
     live = block.sel_mask()
     dev = live.device
-    if use_kernel is None and domain <= MASKED_DOMAIN_LIMIT:
+    if (use_kernel is None and domain <= MASKED_DOMAIN_LIMIT
+            and _masked_eligible(aggs)):
         acc, occupied = _accumulate_masked(aggs, block, slot_ids, live, domain)
     else:
         if use_kernel is None:
@@ -505,7 +651,8 @@ def aggregate_direct(
         else:
             gids = torch.where(live, slot_ids,
                                torch.full_like(slot_ids, domain))
-            acc = _accumulate(aggs, block, gids, live, domain)
+            dflags = _compute_distinct_flags(block, keys, aggs, live)
+            acc = _accumulate(aggs, block, gids, live, domain, dflags)
             occ = torch.zeros(domain + 1, dtype=torch.int32, device=dev)
             occ.index_add_(0, gids.long(), live.to(torch.int32))
             occupied = occ[:domain] > 0
@@ -538,6 +685,10 @@ def aggregate_sort(
     live = block.sel_mask()
     dev = live.device
     key_cols = [block[k] for k in keys]
+    special = [a for a in aggs if a.func == "count_distinct"]
+    # one unfiltered count_distinct sorts its argument as a trailing key:
+    # its first-occurrence flags come off the sorted rows directly
+    in_sort_special = len(special) == 1 and special[0].filter_col is None
     operands: List[torch.Tensor] = [~live]  # live rows first
     for c in key_cols:
         # a wide-decimal key sorts limb by limb (lower limbs are >= 0)
@@ -554,13 +705,28 @@ def aggregate_sort(
                             for d in datas)
         else:
             operands.extend(datas)
+    num_group_keys = len(operands)
+    if in_sort_special:
+        sc = block[special[0].arg]
+        operands.append(~sc.valid_mask())  # valid arg values first in group
+        operands.append(sc.data)
     perm = lexsort_stable(operands)
 
     neq = torch.zeros(n, dtype=torch.bool, device=dev)
-    for op in operands:
+    for op in operands[:num_group_keys]:
         arr = op[perm]
         neq |= arr != torch.roll(arr, 1)
     neq[:1] = False
+    if in_sort_special:
+        pneq = neq.clone()
+        for op in operands[num_group_keys:]:
+            arr = op[perm]
+            pneq |= arr != torch.roll(arr, 1)
+        pneq[:1] = True
+        dflags = {special[0].name: pneq}
+    else:
+        dflags = {k: v[perm] for k, v in
+                  _compute_distinct_flags(block, keys, aggs, live).items()}
     gid_sorted = torch.cumsum(neq.to(torch.int32), 0, dtype=torch.int32)
     live_sorted = live[perm]
     # live rows come first and group ids never decrease
@@ -579,7 +745,7 @@ def aggregate_sort(
                 needed.append(nm)
     sorted_block = (block.select(needed).take(perm) if needed
                     else Block(names=(), columns=(), sel=None))
-    acc = _accumulate(aggs, sorted_block, gids, live_sorted, num_slots)
+    acc = _accumulate(aggs, sorted_block, gids, live_sorted, num_slots, dflags)
 
     # each group's keys from its first row, composed through perm
     pos = torch.arange(n, dtype=torch.int64, device=dev)
@@ -607,15 +773,17 @@ def _stream_accumulate_batched(
     keys: Sequence[str],
     key_cols: Sequence[Column],
     live: torch.Tensor,
+    gids: torch.Tensor,
     ends_ok: torch.Tensor,
     e_idx: torch.Tensor,
+    num_slots: int,
 ) -> Tuple[List[Tuple[str, Column]], torch.Tensor]:
     """Every per-group quantity of the stream method is a read at the
     group's end row: a cumulative sum differenced against the previous
     group's end (spans are dense, so that is a shift), or a key value,
     constant within its group.  The reference packs the reads into one
     gather per dtype class, a TPU gather workaround; here each is one
-    indexing op."""
+    indexing op.  Min/max reduce by the group ids ``gids``."""
 
     def at_ends(cum: torch.Tensor) -> torch.Tensor:
         arr = cum[e_idx]
@@ -642,6 +810,17 @@ def _stream_accumulate_batched(
             torch.cumsum(valid_row.to(torch.int64), 0))
         if a.func == "count":
             out.append((a.name, Column(cnt, None, INT64)))
+            continue
+        if a.func in ("min", "max"):
+            rdt = agg_result_dtype(a.func, col.dtype)
+            ident = _identity_for(a.func, col.dtype)
+            vals = torch.where(valid_row, col.data,
+                               torch.full((), ident, dtype=col.data.dtype,
+                                          device=live.device))
+            red = _segment_reduce(a.func, vals, gids.long(), num_slots + 1,
+                                  ident)[:num_slots]
+            out.append((a.name, Column(red.to(rdt.torch_dtype), cnt > 0, rdt,
+                                       col.dictionary)))
             continue
         if col.dtype.is_float:
             raise NotImplementedError(
@@ -671,46 +850,77 @@ def aggregate_stream(
     group boundaries come from a compare with the previous row.  They are
     found over all rows, dead ones included: a group with no live row
     keeps its slot, unoccupied, and the output ``sel`` is not a prefix.
-    Keys and their validity are read at each group's end row.  More
-    groups than ``num_slots`` (counted over all rows) report the number
-    needed as the overflow."""
+    Keys and their validity are read at each group's end row, or, with a
+    count_distinct, at its first row (the reference's general path).
+    More groups than ``num_slots`` (counted over all rows) report the
+    number needed as the overflow."""
     from .merge import flagged_positions
 
     _check_supported(aggs)
     n = block.capacity
     live = block.sel_mask()
+    dev = live.device
     key_cols = [block[k] for k in keys]
 
-    neq = torch.zeros(n, dtype=torch.bool, device=live.device)
+    neq = torch.zeros(n, dtype=torch.bool, device=dev)
     for c in key_cols:
         neq |= c.data != torch.roll(c.data, 1)
         if c.validity is not None:
             neq |= c.validity != torch.roll(c.validity, 1)
     neq[:1] = False
+    gids = torch.clamp(torch.cumsum(neq.to(torch.int64), 0), max=num_slots)
     total_groups = torch.sum(neq, dtype=torch.int64) + 1
     overflow = torch.where(total_groups > num_slots, total_groups,
                            torch.zeros_like(total_groups))
 
-    is_end = torch.cat([neq[1:], torch.ones(1, dtype=torch.bool, device=live.device)])
+    is_end = torch.cat([neq[1:], torch.ones(1, dtype=torch.bool, device=dev)])
     ends_dense = flagged_positions(is_end, num_slots)
     ends_ok = ends_dense >= 0
     e_idx = ends_dense.clamp(min=0).long()
 
-    acc, occupied = _stream_accumulate_batched(aggs, block, keys, key_cols, live,
-                                               ends_ok, e_idx)
-    out = Block(names=tuple(nm for nm, _ in acc),
-                columns=tuple(c for _, c in acc), sel=occupied)
+    if _masked_eligible(aggs):
+        acc, occupied = _stream_accumulate_batched(aggs, block, keys, key_cols, live,
+                                                   gids, ends_ok, e_idx, num_slots)
+        out = Block(names=tuple(nm for nm, _ in acc),
+                    columns=tuple(c for _, c in acc), sel=occupied)
+        return AggregateResult(out, torch.sum(occupied, dtype=torch.int32), overflow)
+
+    dflags = _compute_distinct_flags(block, keys, aggs, live)
+    acc = _accumulate(aggs, block, gids, live, num_slots, dflags)
+    # occupied slots: groups with a live row (a cumulative sum at the ends)
+    prev_ends = torch.cat([torch.full((1,), -1, dtype=torch.int64, device=dev),
+                           ends_dense[:-1].to(torch.int64)])
+    # slots past the last group start past the end: clamp (they are dead)
+    starts = (prev_ends + 1).clamp(0, max(n - 1, 0))
+    live_cum = torch.cumsum(live.to(torch.int64), 0)
+    at_prev = torch.where(starts > 0, live_cum[(starts - 1).clamp(min=0)],
+                          torch.zeros_like(starts))
+    occupied = ends_ok & ((live_cum[e_idx] - at_prev) > 0)
+    # keys gathered at each group's first row
+    out_key_cols = [
+        Column(c.data[starts], None if c.validity is None else c.validity[starts],
+               c.dtype, c.dictionary)
+        for c in key_cols
+    ]
+    out = Block(names=tuple(keys) + tuple(nm for nm, _ in acc),
+                columns=tuple(out_key_cols) + tuple(c for _, c in acc), sel=occupied)
     return AggregateResult(out, torch.sum(occupied, dtype=torch.int32), overflow)
 
 
 def aggregate_scalar(block: Block, aggs: Sequence[AggDesc]) -> Block:
-    """Aggregation without GROUP BY: single-row output (slot 0)."""
+    """Aggregation without GROUP BY: single-row output (slot 0), by the
+    masked method, or with a count_distinct by the segment one."""
     live = block.sel_mask()
-    acc, _ = _accumulate_masked(
-        aggs, block,
-        torch.zeros(block.capacity, dtype=torch.int32, device=live.device),
-        live, 1,
-    )
+    if _masked_eligible(aggs):
+        acc, _ = _accumulate_masked(
+            aggs, block,
+            torch.zeros(block.capacity, dtype=torch.int32, device=live.device),
+            live, 1,
+        )
+    else:
+        gids = torch.where(live, 0, 1).to(torch.int32)
+        dflags = _compute_distinct_flags(block, [], aggs, live)
+        acc = _accumulate(aggs, block, gids, live, 1, dflags)
     return Block(names=tuple(n for n, _ in acc),
                  columns=tuple(c for _, c in acc), sel=None)
 

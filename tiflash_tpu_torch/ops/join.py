@@ -1,5 +1,5 @@
-"""Hash join as a sorted build side and a range probe: inner, semi and
-anti joins.
+"""Hash join as a sorted build side and a range probe: inner, left
+outer, semi and anti joins, and the cross join.
 
 Counterpart of ``tiflash_tpu/ops/join.py``.  The build "hash table" is
 the build keys sorted stably on (key, not matchable, position); a probe
@@ -10,19 +10,26 @@ Ported here:
 
 - key normalization (``normalize_join_keys``): int keys, string keys
   re-encoded into the build side's dictionary, multi-column keys packed
-  into one int64 when they fit 63 bits;
+  into one int64 when they fit 63 bits, and past that hashed
+  (``ops/hashing.py:hash_columns_u63``);
 - ``build_join`` and ``JoinBuild.take_sorted``;
 - the unique-build fast path (``probe_join_unique``) and the N:M path
   with a bounded output and a required-capacity overflow
-  (``probe_join_general``), both for ``inner``, ``semi`` and ``anti``
-  (the last two narrow the probe side's selection; a plain anti join
-  keeps probe rows whose key is NULL);
-- ``hash_join``, whose unique inner path reports an overflow when the
-  build keys were not unique after all, so the runner retries on the
-  general path.
+  (``probe_join_general``), both for ``inner``, ``left`` (outer),
+  ``semi`` and ``anti`` (the last two narrow the probe side's selection;
+  a plain anti join keeps probe rows whose key is NULL).  A left join
+  keeps every selected probe row in its place, with NULL build columns
+  where it matched nothing;
+- hashed keys always take the general path, which re-verifies each
+  candidate match on the true keys (``_keys_equal``), so a hash
+  collision never joins two different key tuples;
+- ``hash_join``, whose unique inner and left paths report an overflow
+  when the build keys were not unique after all, so the runner retries
+  on the general path;
+- ``cross_join``: every live probe row with every live build row, by
+  the same prefix-sum expansion, with a required-capacity overflow.
 
-Outer, null-aware, left-outer-semi and cross joins, and keys wider than
-63 bits (hashed keys with re-verification) raise
+Right, full, null-aware and left-outer-semi joins raise
 ``NotImplementedError``: they come with the breadth slice of the port.
 NULL join keys never match.
 """
@@ -37,9 +44,10 @@ import torch
 from ..core.block import Block, Column
 from ..core.dtypes import DataType, TypeKind
 
-_LATER = ("comes with the breadth slice of the port (outer, null-aware, "
-          "left-outer-semi and cross joins, hashed wide keys)")
-_KINDS = ("inner", "semi", "anti")
+_LATER = ("comes with the breadth slice of the port (right, full, "
+          "null-aware and left-outer-semi joins)")
+_KINDS = ("inner", "left", "left_outer", "semi", "anti")
+_LEFT = ("left", "left_outer")
 
 
 # ---------------------------------------------------------------------------
@@ -90,8 +98,6 @@ def normalize_join_keys(
     (build) side's dictionary; a probe string absent from it maps to
     ``len(dictionary)``, a real value with no match (not NULL)."""
     assert len(left_cols) == len(right_cols)
-    if join_keys_need_verify(left_cols, right_cols):
-        raise NotImplementedError(f"join keys wider than 63 bits: {_LATER}")
     l_null = torch.zeros(left_cols[0].capacity, dtype=torch.bool,
                          device=left_cols[0].data.device)
     r_null = torch.zeros(right_cols[0].capacity, dtype=torch.bool,
@@ -115,6 +121,13 @@ def normalize_join_keys(
         bits.append(_pair_bits(lc, rc))
     if len(l_parts) == 1:
         return l_parts[0], l_null, r_parts[0], r_null
+    if sum(bits) > 63:
+        # a 62-bit hash of the key tuple is the sort and probe key; the
+        # probe re-verifies the true keys of every candidate match
+        from .hashing import hash_columns_u63
+
+        return (hash_columns_u63(left_cols), l_null,
+                hash_columns_u63(right_cols), r_null)
     lk = torch.zeros_like(l_parts[0])
     rk = torch.zeros_like(r_parts[0])
     for lv, rv, b in zip(l_parts, r_parts, bits):
@@ -123,6 +136,24 @@ def normalize_join_keys(
         lk = (lk << b) | ((lv + bias) & mask)
         rk = (rk << b) | ((rv + bias) & mask)
     return lk, l_null, rk, r_null
+
+
+def _keys_equal(probe_cols: Sequence[Column],
+                build_cols: Sequence[Column]) -> torch.Tensor:
+    """Row-wise equality of the true key tuples (hashed-key verification)."""
+    eq = None
+    for pc, bc in zip(probe_cols, build_cols):
+        if pc.dtype.is_string or bc.dtype.is_string:
+            pv = _translate_dictionary(pc, bc.dictionary or ())
+        else:
+            pv = pc.data.to(torch.int64)
+        e = pv == bc.data.to(torch.int64)
+        if pc.validity is not None:
+            e = e & pc.validity
+        if bc.validity is not None:
+            e = e & bc.validity
+        eq = e if eq is None else (eq & e)
+    return eq
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +268,9 @@ def probe_join_unique(build: JoinBuild, probe_block: Block,
         # NOT EXISTS: a NULL-key row has no match, so it stays
         return probe_block.and_sel(~matched), _matched_flags(build, bidx)
     build_rows = build.take_sorted(bidx, fill_invalid=True)
-    joined = _merge_blocks(probe_block, build_rows).with_sel(matched)
+    joined = _merge_blocks(probe_block, build_rows)
+    # inner keeps the matched rows; left keeps every selected probe row
+    joined = joined.with_sel(probe_block.sel_mask() if kind in _LEFT else matched)
     return joined, _matched_flags(build, bidx)
 
 
@@ -248,11 +281,14 @@ def probe_join_general(
     probe_null: torch.Tensor,
     kind: str,
     output_capacity: int,
+    verify: Optional[Tuple[Sequence[str], Sequence[str]]] = None,
 ) -> Tuple[Block, torch.Tensor, torch.Tensor]:
     """N:M expansion by prefix-sum addressing into ``output_capacity``
     rows: output slot t takes probe row searchsorted(cum, t, right) and
-    build row lo + (t - start).  Returns (joined, matched build flags,
-    required capacity or 0)."""
+    build row lo + (t - start).  A left join emits every selected probe
+    row at least once.  ``verify`` = (probe key names, build key names)
+    re-checks the true keys of each candidate of a hashed-key join.
+    Returns (joined, matched build flags, required capacity or 0)."""
     _check_kind(kind)
     from .merge import dense_inverse
 
@@ -262,7 +298,7 @@ def probe_join_general(
     zero = torch.zeros_like(lo)
     lo = torch.where(probe_live, lo, zero)
     hi = torch.where(probe_live, hi, zero)
-    if kind in ("semi", "anti"):
+    if verify is None and kind in ("semi", "anti"):
         # no expansion: the probe rows, narrowed, in the probe's capacity
         matched = probe_live & (hi > lo)
         bflags = _matched_flags(build, torch.where(matched, lo,
@@ -271,6 +307,9 @@ def probe_join_general(
         return (probe_block.and_sel(sel), bflags,
                 torch.zeros((), dtype=torch.int64, device=lo.device))
     counts = (hi - lo).to(torch.int64)
+    if kind in _LEFT:
+        # every selected probe row emits at least once (NULL-key rows too)
+        counts = torch.maximum(counts, probe_block.sel_mask().to(torch.int64))
     cum = torch.cumsum(counts, 0)
     total = cum[-1] if counts.shape[0] else torch.zeros((), dtype=torch.int64,
                                                           device=cum.device)
@@ -283,13 +322,62 @@ def probe_join_general(
     brow = lo[prow_safe] + k.to(torch.int32)
     live_out = t < total
     brow = torch.where(live_out & has_match, brow, torch.full_like(brow, -1))
+    needed = torch.where(total > output_capacity, total, torch.zeros_like(total))
+
+    if verify is not None:
+        probe_names, build_names = verify
+        pvc = [probe_block[nm].take(prow_safe) for nm in probe_names]
+        bcomp = build.perm[brow.clamp(min=0).long()]
+        bvc = [build.block[nm].take(bcomp) for nm in build_names]
+        verified = _keys_equal(pvc, bvc) & has_match & live_out
+        if kind in ("semi", "anti"):
+            n_probe = probe_block.capacity
+            hit = torch.zeros(n_probe + 1, dtype=torch.bool, device=lo.device)
+            hit[torch.where(verified, prow_safe, torch.full_like(prow_safe, n_probe))] = True
+            hit = hit[:n_probe]
+            bflags = _matched_flags(build, torch.where(verified, brow,
+                                                       torch.full_like(brow, -1)))
+            return (probe_block.and_sel(hit if kind == "semi" else ~hit), bflags,
+                    needed)
+        if kind != "inner":
+            raise NotImplementedError(
+                f"hashed wide join keys not supported for kind {kind!r}")
+        live_out = verified
+
     probe_rows = probe_block.take(prow_safe)
     build_rows = build.take_sorted(brow, fill_invalid=True)
     joined = _merge_blocks(probe_rows, build_rows).with_sel(live_out)
     bflags = _matched_flags(build, torch.where(live_out, brow,
                                                torch.full_like(brow, -1)))
-    needed = torch.where(total > output_capacity, total, torch.zeros_like(total))
     return joined, bflags, needed
+
+
+def cross_join(probe_block: Block, build_block: Block,
+               output_capacity: int) -> Tuple[Block, torch.Tensor]:
+    """Cartesian product by the prefix-sum expansion of the N:M probe,
+    every live probe row matching every live build row.  Returns
+    (joined block, required capacity or 0)."""
+    from .merge import dense_inverse
+
+    build_c = build_block.compact()
+    nb = build_c.num_rows().to(torch.int64)
+    probe_live = probe_block.sel_mask()
+    counts = torch.where(probe_live, nb, torch.zeros_like(nb))
+    cum = torch.cumsum(counts, 0)
+    total = cum[-1] if counts.shape[0] else torch.zeros((), dtype=torch.int64,
+                                                          device=cum.device)
+    start = cum - counts
+    t = torch.arange(output_capacity, dtype=torch.int64, device=cum.device)
+    prow = dense_inverse(cum, output_capacity)
+    prow_safe = torch.clamp(prow, max=counts.shape[0] - 1).long()
+    brow = t - start[prow_safe]
+    live_out = t < total
+    brow = torch.where(live_out, torch.clamp(brow, max=build_c.capacity - 1),
+                       torch.zeros_like(brow))
+    joined = _merge_blocks(probe_block.take(prow_safe),
+                           build_c.take(brow)).with_sel(live_out)
+    needed = torch.where(total > output_capacity, total, torch.zeros_like(total))
+    return joined, needed
 
 
 # ---------------------------------------------------------------------------
@@ -318,9 +406,12 @@ def hash_join(
     pk = [probe_block[k] for k in probe_key_names]
     bk = [build_block[k] for k in build_key_names]
     pkeys, pnull, bkeys, bnull = normalize_join_keys(pk, bk)
+    needs_verify = join_keys_need_verify(pk, bk)
     payload_block = build_block
     if build_payload is not None:
         want = set(build_payload)
+        if needs_verify:
+            want |= set(build_key_names)  # re-verification reads true keys
         keep = [n for n in build_block.names if n in want]
         if not keep:  # a block needs one column to carry its capacity
             keep = [build_key_names[0]]
@@ -328,12 +419,22 @@ def hash_join(
                               columns=tuple(build_block[n] for n in keep),
                               sel=build_block.sel)
     build = build_join(payload_block, bkeys, bnull)
-    if output_capacity is None:
+    if needs_verify:
+        # hashed keys: a collision makes the unique path unsound and the
+        # candidate ranges approximate, so always expand and re-verify
+        if kind not in ("inner", "semi", "anti"):
+            raise NotImplementedError(
+                f"join keys wider than 63 bits not supported for kind {kind!r}")
+        joined, bflags, overflow = probe_join_general(
+            build, probe_block, pkeys, pnull, kind,
+            output_capacity or probe_block.capacity,
+            verify=(list(probe_key_names), list(build_key_names)))
+    elif output_capacity is None:
         joined, bflags = probe_join_unique(build, probe_block, pkeys, pnull, kind)
         # duplicate live build keys: the fast path kept only the first
         # match of each probe row; say so instead of dropping rows
         zero = torch.zeros((), dtype=torch.int64, device=pkeys.device)
-        overflow = zero if kind != "inner" else torch.where(
+        overflow = zero if kind not in ("inner",) + _LEFT else torch.where(
             build.unique, zero,
             torch.full((), probe_block.capacity + 1, dtype=torch.int64,
                        device=pkeys.device))
@@ -353,7 +454,7 @@ def hash_join_with_tail(
     build_payload: Optional[Sequence[str]] = None,
 ):
     """``hash_join`` plus the right/full-outer tail of unmatched build
-    rows.  The kinds ported (inner, semi, anti) have no tail."""
+    rows.  The kinds ported (inner, left, semi, anti) have no tail."""
     _check_kind(kind)
     return hash_join(probe_block, build_block, probe_key_names,
                      build_key_names, kind=kind,
@@ -363,6 +464,6 @@ def hash_join_with_tail(
 
 __all__ = [
     "JoinBuild", "build_join", "probe_join_unique", "probe_join_general",
-    "hash_join", "hash_join_with_tail", "normalize_join_keys",
+    "cross_join", "hash_join", "hash_join_with_tail", "normalize_join_keys",
     "join_keys_need_verify",
 ]

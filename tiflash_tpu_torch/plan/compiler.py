@@ -5,9 +5,11 @@ fragment into one jitted program; the port runs the same walk eagerly.
 Filters stay lazy selection masks; an Aggregation first tries the fused
 scan->filter->project->aggregate path (``ops/stream_fuse.py``), which
 declines any chain but scan/selection/projection (a join child, for
-one), and falls back to the general aggregation methods.  A Join runs its
-probe subtree, then its build subtree (``ops/join.py``); a TopN runs
-``ops/sort.py:top_n``.  Node ids are the reference's DFS pre-order ids,
+one), and falls back to the general aggregation methods.  A Join or a
+CrossJoin runs its probe subtree, then its build subtree
+(``ops/join.py``); a TopN runs ``ops/sort.py:top_n``.  A WithCTE runs
+each definition once, before its child, and every CTERef of that name
+returns the same block.  Node ids are the reference's DFS pre-order ids,
 so overflow keys such as ``Join_5`` match.
 
 The reference chooses the fused path by an environment knob; here it is
@@ -25,7 +27,7 @@ from ..core.block import Block
 from ..expr.compile import ExprEvaluator
 from ..expr.nodes import ColumnRef
 from ..ops.aggregate import hash_aggregate
-from ..ops.join import hash_join_with_tail
+from ..ops.join import cross_join, hash_join_with_tail
 from ..ops.sort import limit_block, sort_block, top_n
 from . import nodes as P
 
@@ -140,6 +142,27 @@ def _exec_node(node: P.PlanNode, tables: Dict[str, Block], diag: Diagnostics,
         diag.overflows[nid] = extras["overflow"]
         diag.rows[nid] = joined.num_rows()
         return joined
+
+    if isinstance(node, P.CrossJoin):
+        probe = child_of(node.probe)
+        build = child_of(node.build)
+        out, needed = cross_join(probe, build, node.output_capacity or probe.capacity)
+        diag.overflows[nid] = needed
+        diag.rows[nid] = out.num_rows()
+        return out
+
+    if isinstance(node, P.WithCTE):
+        tables = dict(tables)
+        for name, d in node.defs.items():
+            tables["__cte_" + name] = _exec_node(d, tables, diag, ctr, fuse)
+        return _exec_node(node.child, tables, diag, ctr, fuse)
+
+    if isinstance(node, P.CTERef):
+        try:
+            return tables["__cte_" + node.name]
+        except KeyError:
+            raise KeyError(f"CTE {node.name!r} not defined by an enclosing "
+                           "WithCTE") from None
 
     if isinstance(node, P.TopN):
         child = child_of(node.child)

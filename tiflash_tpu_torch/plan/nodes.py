@@ -1,10 +1,10 @@
-"""Plan IR: the node kinds the TPC-H Q1, Q3, Q4, Q6, Q7, Q10 and Q22
-slices run.
+"""Plan IR: the node kinds TPC-H's 22 queries run.
 
 Counterpart of ``tiflash_tpu/plan/nodes.py``: TableScan, Selection,
-AddColumns, Projection, Aggregation, Join, TopN, Sort and Limit, with the
-same fields and ``pretty()``.  Cross joins, runtime filters, windows,
-unions, CTEs and exchanges come with later slices of the port.
+AddColumns, Projection, Aggregation, Join, CrossJoin, TopN, Sort, Limit,
+WithCTE and CTERef, with the same fields, ``children`` and ``pretty()``.
+Runtime filters, windows, unions and exchanges come with later slices of
+the port.
 """
 
 from __future__ import annotations
@@ -175,5 +175,47 @@ class AddColumns(PlanNode):
         return f"AddColumns({', '.join(self.exprs)})"
 
 
+@dataclasses.dataclass
+class CrossJoin(PlanNode):
+    """Cartesian product; ``output_capacity`` sizes its expansion."""
+
+    probe: PlanNode = None  # type: ignore[assignment]
+    build: PlanNode = None  # type: ignore[assignment]
+    output_capacity: Optional[int] = None
+
+    def __post_init__(self):
+        self.children = (self.probe, self.build)
+
+    def describe(self):
+        return "CrossJoin"
+
+
+@dataclasses.dataclass
+class WithCTE(PlanNode):
+    """CTE definitions, each run once, before ``child``, and shared by
+    every CTERef of that name below it."""
+
+    defs: Dict[str, PlanNode]
+    child: PlanNode = None  # type: ignore[assignment]
+
+    def __post_init__(self):
+        self.children = tuple(self.defs.values()) + (self.child,)
+
+    def describe(self):
+        return f"WithCTE({list(self.defs)})"
+
+
+@dataclasses.dataclass
+class CTERef(PlanNode):
+    """Consumer of a named CTE (leaf)."""
+
+    name: str
+    children: Tuple[PlanNode, ...] = ()
+
+    def describe(self):
+        return f"CTERef({self.name})"
+
+
 __all__ = ["PlanNode", "TableScan", "Selection", "Projection", "Aggregation",
-           "Join", "TopN", "Sort", "Limit", "AddColumns"]
+           "Join", "CrossJoin", "TopN", "Sort", "Limit", "AddColumns",
+           "WithCTE", "CTERef"]

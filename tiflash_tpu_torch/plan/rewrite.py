@@ -12,9 +12,8 @@ applies to every plan before it runs it (``runtime/executor.py``):
   columns, projections compute fewer expressions, and a join gathers
   only the build payload its parent needs (``Join.build_payload``).
 
-Node kinds the port does not have yet (cross joins, runtime filters,
-windows, exchanges) take the reference's conservative default: nothing
-is pruned under them.
+Other node kinds (cross joins and CTEs among them) take the reference's
+conservative default: nothing is pruned under them.
 """
 
 from __future__ import annotations
@@ -53,7 +52,7 @@ def output_columns(node: P.PlanNode) -> Optional[Set[str]]:
         return output_columns(node.children[0])
     if isinstance(node, P.Projection):
         return set(node.exprs)
-    if isinstance(node, P.Join):
+    if isinstance(node, (P.Join, P.CrossJoin)):
         a = output_columns(node.probe)
         b = output_columns(node.build)
         return None if a is None or b is None else a | b

@@ -8,7 +8,8 @@ first goes through the reference's rewrites,
 ``plan/compiler.py:execute_plan``; when an operator reports that its
 bounded output overflowed, the runner grows that operator's capacity in
 the rewritten tree to 1.25x what it reported and runs again, up to
-``MAX_CAPACITY_RETRIES`` times.  A Join whose unique-build promise was
+``MAX_CAPACITY_RETRIES`` times: an Aggregation's slots, a Join's or a
+CrossJoin's output capacity.  A Join whose unique-build promise was
 false also moves to the general join path.
 
 Not ported: the mesh (distributed) path, auto-sizing, out-of-core
@@ -64,11 +65,12 @@ def _grow(plan: P.PlanNode, flagged: Dict[str, int]) -> None:
         node = nodes.get(int(key.rpartition("_")[2]))
         if isinstance(node, P.Aggregation):
             node.num_slots = max(target, (node.num_slots or 0) * 2)
-        elif isinstance(node, P.Join):
+        elif isinstance(node, (P.Join, P.CrossJoin)):
             node.output_capacity = max(target, (node.output_capacity or 0) * 2)
             # an overflow of the unique path means the build keys were
             # not unique: retry on the general (duplicate-correct) path
-            node.unique_build = False
+            if getattr(node, "unique_build", False):
+                node.unique_build = False
 
 
 def run_query(
