@@ -24,6 +24,14 @@ random data from seed 0:
   outer and cross joins and a CTE, with no kernel, as the CPU dispatch
   predicts.
 
+Each kernel is held against its plain version (``torch.equal``) on edge
+cases, and timed at the query's own arguments beside one ``index_add_``
+of the same sums (the library yardstick) and its bound (the bytes it must
+move over 3.35 TB/s), the L2 flushed before each run.
+``tiflash_tpu_torch/bench/compare_trees.py`` times two checkouts' kernels
+and queries against each other; ``tiflash_tpu_torch/bench/kernel_variants.py``
+times the design alternatives of the kernels.
+
 Every result is checked bit-exact against the port's own CPU run (but
 the 100M-row top-N, whose CPU run would take most of the script's time)
 and an independent numpy computation (in the eight-table phase, one per
@@ -57,6 +65,9 @@ Q3_DATE = "1995-03-15"
 Q4_RANGE = ("1993-07-01", "1993-10-01")
 Q10_RANGE = ("1993-10-01", "1994-01-01")
 TOPN_LIMIT = 100
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+INT_OPS_PER_S = 67e12          # H100 SXM 32-bit rate outside the tensor cores
+L2_FLUSH_BYTES = 256 << 20     # five times the 50 MB L2
 EIGHT_TABLES = ["region", "nation", "supplier", "customer", "part", "partsupp",
                 "orders", "lineitem"]
 Q18_MIN_QTY = 300          # TPC-H's own threshold; the plan's default selects nothing
@@ -559,9 +570,15 @@ def block_result(block) -> tuple:
     return block.to_pylists(), [repr(c.dtype) for c in block.columns]
 
 
+S64_L3_FIELDS = [[(0, 12, 0), (12, 19, 1)], [(0, 31, 2)],
+                 [(0, 10, 3), (10, 10, 4), (20, 11, 5)]]
+
+
 def edge_cases(q1_fields, q6_fields, n_q1: int):
-    """(name, slots, planes, plane_fields) cases for kernel vs plain,
-    random from a seeded generator on the card."""
+    """(name, slots, planes, plane_fields, S, headroom) cases for kernel vs
+    plain, random from a seeded generator on the card.  Headroom-0 cases
+    take random 31-bit planes; headroom cases planes whose every field
+    keeps its top ``headroom`` bits clear (as the fuse's layouts do)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -573,30 +590,92 @@ def edge_cases(q1_fields, q6_fields, n_q1: int):
     def planes(n_planes, m):
         return rnd(0, 2 ** 31 - 1, (n_planes, m))
 
+    def headroom_planes(pf, m, h):
+        """One separate int32 tensor per plane, fields inside the headroom."""
+        out = []
+        for fields in pf:
+            p = torch.zeros(m, dtype=torch.int32, device="cuda")
+            for off, cap, _ in fields:
+                p |= rnd(0, 2 ** (cap - h), (m,)) << off
+            out.append(p)
+        return out
+
+    n_odd = 2_000_003
+    odd_slots = rnd(-1, 7, (n_odd + 1,))
+    odd_planes = headroom_planes(q1_fields, n_odd + 1, 6)
     cases = [
-        ("q1_shape", rnd(0, 7, (n_q1,)), planes(len(q1_fields), n_q1), q1_fields, 6),
+        ("q1_shape", rnd(0, 7, (n_q1,)), planes(len(q1_fields), n_q1), q1_fields, 6, 0),
         ("ragged_rows", rnd(-2, 9, (1_000_003,)), planes(len(q1_fields), 1_000_003),
-         q1_fields, 6),
+         q1_fields, 6, 0),
         ("all_dead", torch.full((300_001,), 6, dtype=torch.int32, device="cuda"),
-         planes(len(q1_fields), 300_001), q1_fields, 6),
+         planes(len(q1_fields), 300_001), q1_fields, 6, 0),
         ("keyless_s1", rnd(0, 2, (2_000_001,)), planes(len(q6_fields), 2_000_001),
-         q6_fields, 1),
+         q6_fields, 1, 0),
         ("s64_few_planes", rnd(0, 65, (3_000_017,)), planes(2, 3_000_017),
-         [[(0, 15, 0), (15, 16, 1)], [(0, 31, 2)]], 64),
+         [[(0, 15, 0), (15, 16, 1)], [(0, 31, 2)]], 64, 0),
         ("full_31bit_field", rnd(0, 4, (2_500_000,)), planes(1, 2_500_000),
-         [[(0, 31, 0)]], 4),
+         [[(0, 31, 0)]], 4, 0),
+        # the packed-headroom path: Q1's layout (registers) and S x L = 192
+        # (thread-private shared-memory columns)
+        ("headroom6_q1_layout", rnd(-1, 7, (n_q1,)),
+         headroom_planes(q1_fields, n_q1, 6), q1_fields, 6, 6),
+        ("headroom6_s64_l3_shared", rnd(0, 65, (3_000_017,)),
+         headroom_planes(S64_L3_FIELDS, 3_000_017, 6), S64_L3_FIELDS, 64, 6),
+        ("headroom6_q6_layout", rnd(0, 2, (2_000_001,)),
+         headroom_planes(q6_fields, 2_000_001, 6), q6_fields, 1, 6),
+        # a base that starts at an odd row: scalar head, then 16-byte quads
+        ("headroom6_odd_row_base", odd_slots[1:], [p[1:] for p in odd_planes],
+         q1_fields, 6, 6),
+        # separate plane tensors whose 16-byte phases differ from the slots'
+        ("headroom6_mixed_phases", odd_slots[1:], [p[:n_odd] for p in odd_planes],
+         q1_fields, 6, 6),
     ]
     return cases
 
 
-def time_ms(fn, reps: int) -> float:
+def check_stream_agg(SA, q1_fields, q6_fields, n_q1: int) -> int:
+    """stream_agg kernel == plain on every case (torch.equal), planes as a
+    list and, where they share one length, stacked; returns the largest
+    absolute difference seen (0)."""
+    import torch
+
+    max_err = 0
+    for name, slots, planes, pf, n_slots, h in edge_cases(q1_fields, q6_fields, n_q1):
+        fields = SA.field_table(pf, len(pf))
+
+        def run(fn, pl):
+            out = torch.zeros((n_slots, len(fields)), dtype=torch.int64, device="cuda")
+            return fn(slots, pl, fields, n_slots, out, h)
+
+        want = run(SA.group_sums_plain, planes)
+        forms = {"list": list(planes)}
+        if isinstance(planes, torch.Tensor):
+            forms["stacked"] = planes
+        for form, pl in forms.items():
+            got = run(SA.group_sums, pl)
+            torch.cuda.synchronize()
+            err = int((got - want).abs().max()) if got.numel() else 0
+            max_err = max(max_err, err)
+            if not torch.equal(got, want):
+                raise AssertionError(f"stream_agg kernel != plain on {name} ({form}): "
+                                     f"max abs err {err}")
+        plan = SA.plan_launch(n_slots, len(pf), len(fields), h)
+        print(f"stream_agg kernel == plain (exact): {name} rows={slots.shape[0]} "
+              f"S={n_slots} planes={len(pf)} fields={len(fields)} headroom={h} "
+              f"regime={plan.regime} threads={plan.threads} forms={'+'.join(forms)}")
+    return max_err
+
+
+def time_ms(fn, reps: int, before=None) -> float:
     """Median CUDA-event time of ``fn()`` over ``reps`` runs, after a warm
-    run."""
+    run; ``before()`` runs outside the timed span before each run."""
     import torch
 
     fn()
     times = []
     for _ in range(reps):
+        if before is not None:
+            before()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -604,6 +683,20 @@ def time_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+class L2Flush:
+    """Reads a buffer five times the 50 MB L2 before a timed run, so the
+    run finds its inputs in device memory and no dirty lines to write
+    back (a read leaves the cache clean)."""
+
+    def __init__(self):
+        import torch
+
+        self.buf = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+
+    def __call__(self):
+        self.buf.sum()
 
 
 def direct_cases(n_q7: int):
@@ -621,8 +714,10 @@ def direct_cases(n_q7: int):
         return torch.rand((n,), generator=g, device="cuda") < frac
 
     def case(name, n, S, k, live_frac=0.7, lo=0, hi=10 ** 9, null_frac=None,
-             dead_slots=None):
+             dead_slots=None, hot_frac=None):
         slots = ints(0, S, n, torch.int32)
+        if hot_frac is not None:  # skew: this share of the rows in slot 7
+            slots = torch.where(live(n, hot_frac), 7, slots)
         lv = live(n, live_frac)
         if dead_slots is not None:  # dead rows carry slots outside [0, S)
             bad = torch.where(ints(0, 2, n) == 0, dead_slots[0], dead_slots[1])
@@ -642,6 +737,7 @@ def direct_cases(n_q7: int):
         case("sums_wrap_mod_2_64", 1_000_000, 3, 2, live_frac=0.9,
              lo=2 ** 62 - 2 ** 20, hi=2 ** 62),
         case("nullable_value_nonnull_counts", 1_200_000, 700, 2, null_frac=0.3),
+        case("skew_90pct_one_slot", n_q7, 676, 3, live_frac=0.9, hot_frac=0.9),
     ]
 
 
@@ -662,10 +758,19 @@ def check_direct_agg(DA, n_q7: int) -> int:
             if not torch.equal(a, b):
                 raise AssertionError(f"direct_agg kernel != plain on {name}: "
                                      f"max abs err {err}")
-        groups = len(DA.column_groups(S, len(vals) + sum(m is not None for m in masks)
-                                      + 1))
+        # group_sums itself: value columns as a list and stacked (K, n)
+        idx = torch.where(lv, slots, S)
+        want_g = DA.group_sums_plain(idx, vals, S, torch.zeros(
+            (S, len(vals) + 1), dtype=torch.int64, device="cuda"))
+        for form, vs in (("list", vals), ("stacked", torch.stack(vals))):
+            got_g = DA.group_sums(idx, vs, S, torch.zeros_like(want_g))
+            if not torch.equal(got_g, want_g):
+                raise AssertionError(f"direct_agg group_sums ({form}) != plain on {name}")
+        plans = DA.launch_plan(S, len(vals) + sum(m is not None for m in masks) + 1)
         print(f"direct_agg kernel == plain (exact): {name} rows={slots.shape[0]} "
-              f"S={S} values={len(vals)} column_groups={groups}")
+              f"S={S} values={len(vals)} column_groups={len(plans)} "
+              f"copies={[g.copies for g in plans]} "
+              f"blocks_per_sm={[g.blocks_per_sm for g in plans]} forms=list+stacked")
     # raw slots outside [0, S) on live rows: the kernel itself skips them
     slots = torch.tensor([0, -7, 10 ** 6, 3, 4, 3], dtype=torch.int32, device="cuda")
     vals = torch.arange(6, dtype=torch.int64, device="cuda").reshape(1, 6)
@@ -677,14 +782,134 @@ def check_direct_agg(DA, n_q7: int) -> int:
     return max_err
 
 
-def time_pair(kernel, plain, reps: int):
-    """(kernel ms, plain ms), measured plain, kernel, kernel, plain; the
+def time_turns(first, second, reps: int, before=None):
+    """(first ms, second ms), measured first, second, second, first; the
     smaller of each pair."""
-    p1 = time_ms(plain, reps)
-    k1 = time_ms(kernel, reps)
-    k2 = time_ms(kernel, reps)
-    p2 = time_ms(plain, reps)
-    return min(k1, k2), min(p1, p2)
+    f1 = time_ms(first, reps, before)
+    s1 = time_ms(second, reps, before)
+    s2 = time_ms(second, reps, before)
+    f2 = time_ms(first, reps, before)
+    return min(f1, f2), min(s1, s2)
+
+
+def capture_calls(module, name: str, run) -> list:
+    """The arguments of every ``module.<name>`` call that ``run()`` makes,
+    each tensor cloned (a list of tensors as a list of clones)."""
+    import torch
+
+    captured = []
+    orig = getattr(module, name)
+
+    def spy(*args):
+        def copy(a):
+            if isinstance(a, torch.Tensor):
+                return a.clone()
+            if isinstance(a, list) and all(isinstance(t, torch.Tensor) for t in a):
+                return [t.clone() for t in a]
+            return a
+
+        captured.append(tuple(copy(a) for a in args))
+        return orig(*args)
+
+    setattr(module, name, spy)
+    try:
+        run()
+    finally:
+        setattr(module, name, orig)
+    return captured
+
+
+def stream_agg_yardsticks(SA, captured, flush) -> dict:
+    """At a query's captured ``group_sums`` calls: the kernel's and the
+    plain version's time, the kernel's with every slot dead (what the slot
+    pass alone costs), one ``index_add_`` of the pre-extracted int64
+    fields into (S+1, n_fields) per call (the library yardstick), and the
+    bound: 4 B of slot per row, 4 B per plane of each live row and the
+    int64 output, over 3.35 TB/s (the adds, one per live field, are far
+    under the int32 rate)."""
+    import torch
+
+    def run_all(fn):
+        for slots, planes, fields, n_slots, _, h in captured:
+            fn(slots, planes, fields, n_slots,
+               torch.zeros((n_slots, len(fields)), dtype=torch.int64, device="cuda"), h)
+
+    p_ms, k_ms = time_turns(lambda: run_all(SA.group_sums_plain),
+                            lambda: run_all(SA.group_sums), KERNEL_REPS, flush)
+    dead = [(torch.full_like(c[0], c[3]), *c[1:]) for c in captured]
+    dead_ms = time_ms(lambda: [SA.group_sums(*c[:4], torch.zeros(
+        (c[3], len(c[2])), dtype=torch.int64, device="cuda"), c[5]) for c in dead],
+        KERNEL_REPS, flush)
+    lib_in, n_bytes, n_ops, rows = [], 0, 0, 0
+    for slots, planes, fields, n_slots, _, _ in captured:
+        live_mask = (slots >= 0) & (slots < n_slots)
+        live = int(live_mask.sum())
+        idx = torch.where(live_mask, slots, n_slots).long()
+        vals = torch.stack([(planes[pl].long() >> off) & ((1 << cap) - 1)
+                            for pl, off, cap, _ in sorted(fields, key=lambda r: r[3])], 1)
+        acc = torch.zeros((n_slots + 1, len(fields)), dtype=torch.int64, device="cuda")
+        lib_in.append((acc, idx, vals))
+        n_bytes += 4 * slots.shape[0] + 4 * len(planes) * live + 8 * n_slots * len(fields)
+        n_ops += live * len(fields)
+        rows += slots.shape[0]
+    lib_ms = time_ms(lambda: [acc.index_add_(0, idx, vals) for acc, idx, vals in lib_in],
+                     KERNEL_REPS, flush)
+    bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / INT_OPS_PER_S) * 1e3
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_bytes": n_bytes, "rows": rows, "launches": len(captured),
+            "all_dead_ms": dead_ms}
+
+
+def direct_agg_yardsticks(DA, captured, flush) -> dict:
+    """At Q7-pairs' captured ``group_sums`` calls: kernel, plain, the
+    kernel with every slot dead (the slot pass alone), one
+    ``index_add_`` of the (n, K+1) int64 rows (values and ones) into
+    (S+1, K+1), and the bound: 4 B of slot per row, 8 B per value of each
+    live row and the output, over 3.35 TB/s.  ``sector_bound_ms`` counts
+    instead every 32-byte sector that holds a live row's value: what
+    device memory moves for rows scattered among dead ones."""
+    import torch
+
+    def run_all(fn):
+        for slots, vals, n_slots, _ in captured:
+            fn(slots, vals, n_slots,
+               torch.zeros((n_slots, len(vals) + 1), dtype=torch.int64, device="cuda"))
+
+    p_ms, k_ms = time_turns(lambda: run_all(DA.group_sums_plain),
+                            lambda: run_all(DA.group_sums), KERNEL_REPS, flush)
+    dead_ms = time_ms(lambda: [DA.group_sums(torch.full_like(c[0], c[2]), c[1], c[2], torch.zeros(
+        (c[2], len(c[1]) + 1), dtype=torch.int64, device="cuda")) for c in captured],
+        KERNEL_REPS, flush)
+    lib_in, n_bytes, sector_bytes, rows, lives = [], 0, 0, 0, 0
+    for slots, vals, n_slots, _ in captured:
+        n, k = slots.shape[0], len(vals)
+        live_mask = (slots >= 0) & (slots < n_slots)
+        live = int(live_mask.sum())
+        quads = int(torch.nn.functional.pad(live_mask, (0, -n % 4)).view(-1, 4).any(1).sum())
+        idx = torch.where(live_mask, slots, n_slots).long()
+        rows_in = torch.stack([*vals, torch.ones(n, dtype=torch.int64, device="cuda")], 1)
+        acc = torch.zeros((n_slots + 1, k + 1), dtype=torch.int64, device="cuda")
+        lib_in.append((acc, idx, rows_in))
+        out_bytes = 8 * n_slots * (k + 1)
+        n_bytes += 4 * n + 8 * k * live + out_bytes
+        sector_bytes += 4 * n + 32 * k * quads + out_bytes
+        rows += n
+        lives += live
+    lib_ms = time_ms(lambda: [acc.index_add_(0, idx, r) for acc, idx, r in lib_in],
+                     KERNEL_REPS, flush)
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_bytes": n_bytes,
+            "sector_bound_ms": sector_bytes / HBM_BYTES_PER_S * 1e3,
+            "rows": rows, "live": lives, "launches": len(captured), "all_dead_ms": dead_ms}
+
+
+def yardstick_line(name: str, y: dict, card: str) -> str:
+    return (f"{name}: kernel {y['ms']:.4f} ms, plain {y['plain_ms']:.4f} ms, "
+            f"index_add_ {y['library_ms']:.4f} ms, bound {y['bound_ms']:.4f} ms "
+            f"({y['bound_bytes']} B at 3.35 TB/s), share of bound "
+            f"{y['bound_ms'] / y['ms']:.1%}, {y['rows']} rows in {y['launches']} "
+            f"launches; the same slots all dead (the slot pass alone) "
+            f"{y['all_dead_ms']:.4f} ms; L2 flushed before each run [{card}]")
 
 
 def eight_table_queries() -> list:
@@ -867,21 +1092,7 @@ def main() -> int:
 
     # ---- 3. kernels against their plain versions --------------------------------
     # tolerance zero: the outputs are integer sums, compared with torch.equal
-    max_err = 0
-    for name, slots, planes, pf, n_slots in edge_cases(layouts["q1"], layouts["q6"], n_rows):
-        fields = SA.field_table(pf, len(pf))
-        got = SA.group_sums(slots, planes, fields, n_slots,
-                            torch.zeros((n_slots, len(fields)), dtype=torch.int64,
-                                        device="cuda"))
-        want = SA.group_sums_plain(slots, planes, fields, n_slots,
-                                   torch.zeros_like(got))
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max()) if got.numel() else 0
-        max_err = max(max_err, err)
-        if not torch.equal(got, want):
-            raise AssertionError(f"kernel != plain on {name}: max abs err {err}")
-        print(f"kernel == plain (exact): {name} rows={slots.shape[0]} S={n_slots} "
-              f"planes={len(pf)} fields={len(fields)}")
+    max_err = check_stream_agg(SA, layouts["q1"], layouts["q6"], n_rows)
     direct_err = check_direct_agg(DA, cat7["lineitem"].row_count)
 
     # ---- 4. Q1 and Q6 at SF1 on the card ----------------------------------------
@@ -917,39 +1128,23 @@ def main() -> int:
         print(f"{name} sf{SF} on cuda: kernel launches {launches_per_query[name]}, "
               f"bit-exact vs port CPU run and numpy: {got[0]}")
 
-    # timings: whole query, then the kernel vs the plain version on the
-    # query's own slot/plane tensors (captured in one extra run)
-    kernel_ms = plain_ms = None
+    # timings: whole query, then the kernel, the plain version, one
+    # index_add_ and the bound on the query's own group_sums arguments
+    # (captured in one extra run)
+    flush = L2Flush()
+    stream_y, q_ms = {}, {}
     for name, plan_fn in (("q1", q1_plan), ("q6", q6_plan)):
         plan = plan_fn()
-        q_ms = time_ms(lambda: run_query(plan, gpu_tables), WARM_RUNS)
-        captured = []
-        orig = SA.group_sums
-
-        def capture(slots, planes, fields, n_slots, out):
-            captured.append((slots.clone(), planes.clone(), fields, n_slots))
-            return orig(slots, planes, fields, n_slots, out)
-
-        SA.group_sums = capture
-        try:
-            run_query(plan, gpu_tables)
-        finally:
-            SA.group_sums = orig
-
-        def run_all(fn):
-            for slots, planes, fields, n_slots in captured:
-                fn(slots, planes, fields, n_slots,
-                   torch.zeros((n_slots, len(fields)), dtype=torch.int64,
-                               device="cuda"))
-
-        k_ms, p_ms = time_pair(lambda: run_all(SA.group_sums),
-                               lambda: run_all(SA.group_sums_plain), KERNEL_REPS)
-        rows = sum(c[0].shape[0] for c in captured)
-        print(f"{name} sf{SF} run_query median {q_ms:.3f} ms over {WARM_RUNS} warm runs; "
-              f"stream_agg kernel {k_ms:.3f} ms vs plain {p_ms:.3f} ms over "
-              f"{rows} rows in {len(captured)} launches [{card}]")
-        if name == "q1":
-            kernel_ms, plain_ms = k_ms, p_ms
+        q_ms[name] = time_ms(lambda: run_query(plan, gpu_tables), WARM_RUNS)
+        captured = capture_calls(SA, "group_sums", lambda: run_query(plan, gpu_tables))
+        y = stream_agg_yardsticks(SA, captured, flush)
+        stream_y[name] = y
+        c = captured[0]
+        lp = SA.plan_launch(c[3], len(c[1]), len(c[2]), c[5])
+        print(f"{name} sf{SF} run_query median {q_ms[name]:.3f} ms over {WARM_RUNS} warm "
+              f"runs; stream_agg regime {lp.regime} (variant {lp.variant}), headroom "
+              f"{c[5]}, 16-byte path {lp.vector} [{card}]")
+        print("  " + yardstick_line(f"{name} stream_agg", y, card))
     del gpu_tables
 
     # ---- 5. Q7 and Q7 over all nation pairs at SF1 on the card -------------------
@@ -983,40 +1178,22 @@ def main() -> int:
         raise AssertionError(f"q7_pairs: {len(np7['q7_pairs']['n_lines'])} groups, "
                              "expected 625")
 
-    direct_ms = direct_plain_ms = None
+    direct_y = None
     for name, plan_fn in q7_plans:
         plan = plan_fn()
-        q_ms = time_ms(lambda: run_query(plan, gpu7), WARM_RUNS)
-        line = f"{name} sf{SF} run_query median {q_ms:.3f} ms over {WARM_RUNS} warm runs"
+        q7_ms = time_ms(lambda: run_query(plan, gpu7), WARM_RUNS)
+        print(f"{name} sf{SF} run_query median {q7_ms:.3f} ms over {WARM_RUNS} warm "
+              f"runs [{card}]")
         if name == "q7_pairs":
-            captured = []
-            orig = DA.group_sums
-
-            def capture_direct(slots, vals, n_slots, out):
-                captured.append((slots.clone(), vals.clone(), n_slots))
-                return orig(slots, vals, n_slots, out)
-
-            DA.group_sums = capture_direct
-            try:
-                run_query(plan, gpu7)
-            finally:
-                DA.group_sums = orig
-
-            def run_direct(fn):
-                for slots, vals, n_slots in captured:
-                    fn(slots, vals, n_slots,
-                       torch.zeros((n_slots, vals.shape[0] + 1), dtype=torch.int64,
-                                   device="cuda"))
-
-            direct_ms, direct_plain_ms = time_pair(
-                lambda: run_direct(DA.group_sums),
-                lambda: run_direct(DA.group_sums_plain), KERNEL_REPS)
-            slots, vals, n_slots = captured[0]
-            live = int(((slots >= 0) & (slots < n_slots)).sum())
-            line += (f"; direct_agg kernel {direct_ms:.3f} ms vs plain "
-                     f"{direct_plain_ms:.3f} ms over {slots.shape[0]} rows "
-                     f"({live} live), S={n_slots}, {vals.shape[0]} value columns")
-        print(line + f" [{card}]")
+            captured = capture_calls(DA, "group_sums", lambda: run_query(plan, gpu7))
+            direct_y = direct_agg_yardsticks(DA, captured, flush)
+            slots, vals, n_slots, _ = captured[0]
+            lp = DA.launch_plan(n_slots, len(vals) + 1)
+            print(f"  q7_pairs direct_agg: {direct_y['live']} live rows, S={n_slots}, "
+                  f"{len(vals)} value columns, copies {[g.copies for g in lp]}, "
+                  f"blocks per SM {[g.blocks_per_sm for g in lp]}; 32-byte-sector "
+                  f"bound {direct_y['sector_bound_ms']:.4f} ms")
+            print("  " + yardstick_line("q7_pairs direct_agg", direct_y, card))
 
     # ---- 6. Q3, Q10, Q4, Q22 and top-N at SF1; top-N over 100M rows --------
     # no kernel is on this path: Q3's stream aggregation has 1.5M groups
@@ -1098,25 +1275,23 @@ def main() -> int:
     # ---- 7. Q2-Q21 at SF1 on the eight-table catalog ---------------------------
     eight_table_phase(card)
 
-    print(json.dumps({"kernels": [{
-        "name": "stream_agg",
-        "route": "cuda",
-        "source": "tiflash_tpu_torch/csrc/stream_agg.cu",
-        "replaces": "tiflash_tpu/ops/pallas/stream_agg.py:160",
-        "launches": main_path_launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "direct_agg",
-        "route": "cuda",
-        "source": "tiflash_tpu_torch/csrc/direct_agg.cu",
-        "replaces": "tiflash_tpu/ops/pallas/direct_agg.py:116",
-        "launches": q7_launches,
-        "max_abs_err": direct_err,
-        "ms": direct_ms,
-        "plain_ms": direct_plain_ms,
-    }]}))
+    q1y = stream_y["q1"]
+
+    def entry(name, replaces, launches, max_abs, y):
+        return {"name": name, "route": "cuda",
+                "source": f"tiflash_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+                "launches": launches, "max_abs_err": max_abs, "ms": y["ms"],
+                "plain_ms": y["plain_ms"], "bound_ms": y["bound_ms"],
+                "bound_by": "bytes", "library_ms": y["library_ms"],
+                "share_of_bound": y["bound_ms"] / y["ms"]}
+
+    print(json.dumps({"kernels": [
+        entry("stream_agg", "tiflash_tpu/ops/pallas/stream_agg.py:160",
+              main_path_launches, max_err, q1y),
+        dict(entry("direct_agg", "tiflash_tpu/ops/pallas/direct_agg.py:116",
+                   q7_launches, direct_err, direct_y),
+             sector_bound_ms=direct_y["sector_bound_ms"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -23,10 +23,13 @@ from tiflash_tpu_torch.ops.cuda import direct_agg as TDA
 
 
 def _case(n, S, n_vals, seed, null_frac=0.0, dead_frac=0.3, lo=-2 ** 52,
-          hi=2 ** 52, oob_dead=False, all_dead=False):
-    """slots int32, values int64 list, masks (bool or None) list, live."""
+          hi=2 ** 52, oob_dead=False, all_dead=False, hot_frac=0.0):
+    """slots int32, values int64 list, masks (bool or None) list, live;
+    ``hot_frac`` of the rows in slot 7 (a skewed domain)."""
     rng = np.random.default_rng(seed)
     slots = rng.integers(0, S, n).astype(np.int32)
+    if hot_frac:
+        slots[rng.random(n) < hot_frac] = 7
     live = np.zeros(n, bool) if all_dead else rng.random(n) > dead_frac
     if oob_dead:  # dead rows may carry any slot, in range or not
         dead = np.flatnonzero(~live)
@@ -94,6 +97,8 @@ CASES = {
                               hi=-2 ** 62 + 2 ** 20, null_frac=0.1),
     "ragged_rows": dict(n=8192 + 77, S=70, n_vals=1, seed=15),
     "all_dead": dict(n=2000, S=80, n_vals=1, seed=16, all_dead=True),
+    # 90% of the rows in one slot
+    "skew_90pct_one_slot": dict(n=5000, S=676, n_vals=2, seed=17, hot_frac=0.9),
 }
 
 
@@ -128,6 +133,24 @@ def test_nullable_columns_match_numpy():
     S = 700
     inputs = _case(n=20_000, S=S, n_vals=3, seed=22, null_frac=0.3)
     _assert_same(_port(*inputs, S), _numpy(*inputs, S))
+
+
+@pytest.mark.parametrize("hot_frac", [0.0, 0.9], ids=["spread", "skew_90pct"])
+def test_value_list_equals_stacked(hot_frac):
+    """group_sums with the value columns as a list equals the (K, n)
+    stacked form, both against np.add.at."""
+    S = 676
+    slots, vals, masks, live = _case(n=20_000, S=S, n_vals=3, seed=23, hot_frac=hot_frac)
+    idx = torch.as_tensor(np.where(live, slots, S).astype(np.int32))
+    cols = [torch.as_tensor(v) for v in vals]
+    as_list = TDA.group_sums(idx, cols, S, torch.zeros((S, 4), dtype=torch.int64))
+    stacked = TDA.group_sums(idx, torch.stack(cols), S, torch.zeros((S, 4), dtype=torch.int64))
+    assert torch.equal(as_list, stacked)
+    sums, counts, _ = _numpy(slots, vals, [None] * 3, live, S)
+    np.testing.assert_array_equal(as_list[:, :3].numpy(), sums)
+    np.testing.assert_array_equal(as_list[:, 3].numpy(), counts)
+    if hot_frac:
+        assert counts[7] > counts.sum() * 0.85
 
 
 def test_index_add_wraps_in_twos_complement():
@@ -257,10 +280,10 @@ def test_default_choice_takes_the_kernel_branch(monkeypatch):
 def test_kernel_matches_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the direct_agg kernel has no CPU form")
-    for n, S, k, seed in [(1_000_003, 676, 2, 0), (300_001, 4096, 10, 1),
-                          (50_000, 65, 1, 2)]:
+    for n, S, k, seed, hot in [(1_000_003, 676, 2, 0, 0.0), (300_001, 4096, 10, 1, 0.0),
+                               (50_000, 65, 1, 2, 0.0), (1_000_003, 676, 3, 3, 0.9)]:
         slots, vals, masks, live = _case(n=n, S=S, n_vals=k, seed=seed,
-                                         null_frac=0.2, oob_dead=True)
+                                         null_frac=0.2, oob_dead=True, hot_frac=hot)
         dev = [torch.as_tensor(x, device="cuda") for x in (slots, live)]
         vs = [torch.as_tensor(v, device="cuda") for v in vals]
         ms = [torch.as_tensor(m, device="cuda") for m in masks]
@@ -271,6 +294,13 @@ def test_kernel_matches_plain():
         assert TDA.LAUNCHES > before
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         assert all(torch.equal(g, w) for g, w in zip(got[2], want[2]))
+        # group_sums itself, value columns as a list and stacked
+        idx = torch.where(dev[1], dev[0], S)
+        want_g = TDA.group_sums_plain(idx, vs, S, torch.zeros(
+            (S, k + 1), dtype=torch.int64, device="cuda"))
+        for form in (vs, torch.stack(vs)):
+            assert torch.equal(TDA.group_sums(idx, form, S, torch.zeros_like(want_g)),
+                               want_g)
     # raw slots outside [0, S) on rows the kernel itself must skip
     slots = torch.tensor([0, -7, 10 ** 6, 3, 4], dtype=torch.int32, device="cuda")
     vals = torch.arange(5, dtype=torch.int64, device="cuda").reshape(1, 5)

@@ -56,7 +56,7 @@ def _torch_tile(S, packed):
     return mtv
 
 
-def _both(n, S, packed, seed, all_dead=False):
+def _both(n, S, packed, seed, all_dead=False, headroom=0):
     import jax.numpy as jnp
     from tiflash_tpu.ops.pallas import stream_agg as JSA
 
@@ -67,22 +67,51 @@ def _both(n, S, packed, seed, all_dead=False):
         S, 2, n, interpret=True, plane_fields=pf)
     got = TSA.stream_group_sums(
         {k: torch.as_tensor(v) for k, v in host.items()}, _torch_tile(S, packed),
-        S, 2, n, plane_fields=pf)
+        S, 2, n, plane_fields=pf, headroom=headroom)
     return got, np.asarray(want)
 
 
-@pytest.mark.parametrize("n,S,packed,all_dead", [
+SHAPES = [
     (3 * 8192 + 77, 5, True, False),    # ragged row count
     (20_000, 5, True, True),            # every row dead
     (12_345, 1, True, False),           # keyless: one slot
     (9_001, 7, False, False),           # one field per plane
-])
+]
+
+
+@pytest.mark.parametrize("n,S,packed,all_dead", SHAPES)
 def test_plain_matches_reference_kernel(n, S, packed, all_dead):
     got, want = _both(n, S, packed, seed=n, all_dead=all_dead)
     assert got.dtype == torch.int64 and want.dtype == np.int64
     np.testing.assert_array_equal(got.numpy(), want)
     if all_dead:
         assert not got.any()
+
+
+@pytest.mark.parametrize("n,S,packed,all_dead", SHAPES)
+def test_plane_list_matches_stacked_and_reference(n, S, packed, all_dead):
+    """group_sums_plain with the planes as a list equals the stacked form
+    and the JAX kernel in interpret mode, on the tile function's planes."""
+    host = _inputs(n, S, n + 1, all_dead)
+    inputs = {k: torch.as_tensor(v) for k, v in host.items()}
+    slots, planes = _torch_tile(S, packed)(inputs, torch.ones(n, dtype=torch.bool))
+    fields = TSA.field_table(PACKED if packed else None, 2)
+    as_list = TSA.group_sums_plain(slots, list(planes), fields, S,
+                                   torch.zeros((S, len(fields)), dtype=torch.int64))
+    stacked = TSA.group_sums_plain(slots, torch.stack(planes), fields, S,
+                                   torch.zeros((S, len(fields)), dtype=torch.int64))
+    assert torch.equal(as_list, stacked)
+    _, want = _both(n, S, packed, seed=n + 1, all_dead=all_dead)
+    np.testing.assert_array_equal(as_list.numpy(), want)
+
+
+@pytest.mark.parametrize("n,S", [(3 * 8192 + 77, 5), (12_345, 1)])
+def test_headroom_matches_reference_kernel(n, S):
+    """PACKED keeps 6 bits clear above each field's values (a < 2^8 in 14
+    bits, b < 2^9 in 15, c < 2^24 in 30): the headroom path is the
+    reference's own accumulation."""
+    got, want = _both(n, S, True, seed=n + 2, headroom=6)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_multi_chunk_matches_reference_flushes(monkeypatch):
@@ -150,10 +179,37 @@ def test_kernel_matches_plain():
     torch.cuda.synchronize()
     assert TSA.LAUNCHES == before + 1
     assert torch.equal(got, want)
-    # the whole contract, tile function included
+    # the whole contract, tile function included, with and without headroom
     host = _inputs(50_001, S, seed=4)
     inputs = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
     tile = _torch_tile(S, True)
-    got = TSA.stream_group_sums(inputs, tile, S, 2, 50_001, plane_fields=PACKED)
-    want = TSA.stream_group_sums_plain(inputs, tile, S, 2, 50_001, plane_fields=PACKED)
-    assert torch.equal(got, want)
+    for h in (0, 6):
+        got = TSA.stream_group_sums(inputs, tile, S, 2, 50_001, plane_fields=PACKED,
+                                    headroom=h)
+        want = TSA.stream_group_sums_plain(inputs, tile, S, 2, 50_001,
+                                           plane_fields=PACKED, headroom=h)
+        assert torch.equal(got, want)
+    # the headroom path: planes as a list, at an odd-row base (scalar head,
+    # then 16-byte quads), with phases that differ (scalar path), in
+    # registers (S=6) and in shared memory (S=64, S x L = 192)
+    layout64 = [[(0, 12, 0), (12, 19, 1)], [(0, 31, 2)],
+                [(0, 10, 3), (10, 10, 4), (20, 11, 5)]]
+    for S, layout in ((6, PACKED), (64, layout64)):
+        m = 700_003
+        slots = torch.randint(-1, S + 1, (m + 1,), generator=g, device="cuda",
+                              dtype=torch.int32)
+        planes = []
+        for fs in layout:
+            p = torch.zeros(m + 1, dtype=torch.int32, device="cuda")
+            for off, cap, _ in fs:
+                p |= torch.randint(0, 2 ** (cap - 6), (m + 1,), generator=g,
+                                   device="cuda", dtype=torch.int32) << off
+            planes.append(p)
+        fields = TSA.field_table(layout, len(layout))
+        for sl, pl in ((slots, planes), (slots[1:], [p[1:] for p in planes]),
+                       (slots[1:], [p[:m] for p in planes])):
+            got = TSA.group_sums(sl, pl, fields, S, torch.zeros(
+                (S, len(fields)), dtype=torch.int64, device="cuda"), 6)
+            want = TSA.group_sums_plain(sl, pl, fields, S, torch.zeros_like(got), 6)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)

@@ -42,8 +42,8 @@ MUL_SPLIT_BITS = 16    # wide-product factor split (grade-school multiply)
 ACC_LIMB_BITS = 25     # accumulation limb width
 # headroom bits above each packed field: the reference's per-element
 # growth between its int32 flushes (log2 of 64 tiles).  The port's kernel
-# extracts every field per element, so the headroom is unused there; it
-# keeps the plane layout identical to the reference's.
+# uses it the same way: each lane adds 2^6 rows' whole planes in uint32
+# before it extracts the fields (``stream_group_sums(..., headroom=)``).
 FIELD_GROWTH_BITS = 6
 
 _MUL_MASK = (1 << MUL_SPLIT_BITS) - 1
@@ -597,7 +597,7 @@ MAX_PLANES = 240  # S * L cap (the kernel's shared-memory accumulator)
 # how often the fuse engaged, and the last fuse's layout — read by tests
 # and chip_smoke.py
 FUSE_STATS = {"count": 0, "slots": 0, "limbs": 0, "fields": 0,
-              "plane_fields": None}
+              "plane_fields": None, "field_hi": None}
 
 
 def try_fuse_stream_agg(node, tables: Dict[str, Block]):
@@ -736,6 +736,7 @@ def _fuse(node, tables):
     # gives 6 planes holding 8 fields.
     growth = FIELD_GROWTH_BITS
     pieces: List[List[int]] = []  # (part_idx, limb_j, width_bits)
+    piece_hi: List[int] = []      # each piece's largest value
     piece_of_part: List[List[int]] = []
     for pi, p in enumerate(part_list):
         nl = -(-_bits(p.hi) // ACC_LIMB_BITS) if p.hi else 1
@@ -746,6 +747,7 @@ def _fuse(node, tables):
                 hi_j = min(hi_j, (1 << ACC_LIMB_BITS) - 1)
             idxs.append(len(pieces))
             pieces.append([pi, j, max(_bits(hi_j), 1)])
+            piece_hi.append(hi_j)
         piece_of_part.append(idxs)
     # first-fit-decreasing into 31-bit planes
     order = sorted(range(len(pieces)), key=lambda i: -pieces[i][2])
@@ -883,8 +885,10 @@ def _fuse(node, tables):
     FUSE_STATS["limbs"] = n_limbs
     FUSE_STATS["fields"] = len(pieces)
     FUSE_STATS["plane_fields"] = plane_fields
+    FUSE_STATS["field_hi"] = piece_hi
     sums = stream_group_sums(inputs, make_tile_values, S, n_limbs,
-                             n_rows=base.capacity, plane_fields=plane_fields)
+                             n_rows=base.capacity, plane_fields=plane_fields,
+                             headroom=growth)
     dev = sums.device
 
     # ---- recombination (S x L values) ----
