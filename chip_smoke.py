@@ -929,16 +929,67 @@ NUMPY8 = {"q2": numpy_q2, "q9": numpy_q9, "q13": numpy_q13, "q14": numpy_q14,
           "q16": numpy_q16, "q18_300": numpy_q18}
 
 
-def eight_table_phase(card: str, sf: float = SF) -> None:
+def cpu_run_with_spy(plan, tables):
+    """One ``run_query`` on the CPU with a spy on the direct_agg kernel's
+    branch and on the fused path, which launch a kernel on the card.
+    Returns (block_result, retries, (branch calls, fused runs))."""
+    from tiflash_tpu_torch.ops import aggregate as TA
+    from tiflash_tpu_torch.ops import stream_fuse as SF_
+    from tiflash_tpu_torch.runtime.executor import run_query
+
+    calls = []
+    real_branch = TA._accumulate_direct_kernel
+    TA._accumulate_direct_kernel = lambda *a: calls.append(1) or real_branch(*a)
+    f0 = SF_.FUSE_STATS["count"]
+    try:
+        out, summary = run_query(plan, tables)
+    finally:
+        TA._accumulate_direct_kernel = real_branch
+    return (block_result(out), summary.retries,
+            (len(calls), SF_.FUSE_STATS["count"] - f0))
+
+
+def card_run_checked(name: str, plan, tables, cpu_result, cpu_retries: int,
+                     predicted) -> tuple:
+    """One ``run_query`` on the card: it must launch the kernels the CPU
+    dispatch predicts, take the CPU run's retries and equal its result.
+    Returns (result, summary, direct_agg launches, stream_agg launches)."""
+    import torch
+
+    from tiflash_tpu_torch.ops import stream_fuse as SF_
+    from tiflash_tpu_torch.ops.cuda import direct_agg as DA, stream_agg as SA
+    from tiflash_tpu_torch.runtime.executor import run_query
+
+    d0, s0, f0 = DA.LAUNCHES, SA.LAUNCHES, SF_.FUSE_STATS["count"]
+    out, summary = run_query(plan, tables)
+    torch.cuda.synchronize()
+    direct, stream, fused = (DA.LAUNCHES - d0, SA.LAUNCHES - s0,
+                             SF_.FUSE_STATS["count"] - f0)
+    want_branch, want_fused = predicted
+    if ((direct > 0) != (want_branch > 0) or fused != want_fused
+            or (stream > 0) != (want_fused > 0)):
+        raise AssertionError(
+            f"{name}: direct_agg launches {direct}, stream_agg launches {stream}, "
+            f"fused runs {fused}; the CPU dispatch predicts {want_branch} "
+            f"direct_agg branch calls and {want_fused} fused runs")
+    if summary.device != "cuda:0" or summary.retries != cpu_retries:
+        raise AssertionError(f"{name}: ran on {summary.device} with "
+                             f"{summary.retries} retries (CPU: {cpu_retries})")
+    got = block_result(out)
+    if got != cpu_result:
+        raise AssertionError(f"{name}: cuda result != cpu result\n{got}\n{cpu_result}")
+    return got, summary, direct, stream
+
+
+def eight_table_phase(card: str, sf: float = SF):
     """Q2-Q21 and Q18 at threshold 300 on the eight-table catalog: each
     through ``run_query`` on the CPU (with a spy on the two kernels'
     branches), then on the card, bit-exact against the CPU run, six also
     against numpy; the card's launches must equal what the CPU dispatch
-    predicts (none).  Prints each query's warm ``run_query`` median."""
+    predicts (none).  Prints each query's warm ``run_query`` median.
+    Returns the catalog, its card tables and the CPU results."""
     import torch
 
-    from tiflash_tpu_torch.ops import aggregate as TA
-    from tiflash_tpu_torch.ops import stream_fuse as SF_
     from tiflash_tpu_torch.ops.cuda import direct_agg as DA, stream_agg as SA
     from tiflash_tpu_torch.runtime.executor import run_query
     from tiflash_tpu_torch.storage.tpch import generate_tpch
@@ -950,29 +1001,13 @@ def eight_table_phase(card: str, sf: float = SF) -> None:
         + f" rows in {time.perf_counter() - t0:.1f} s")
     queries = eight_table_queries()
 
-    # CPU runs; the spy counts calls of the direct_agg kernel's branch and
-    # of the fused path, which launch a kernel on the card
     t0 = time.perf_counter()
     cpu8, cpu_retries, predicted = {}, {}, {}
-    branch_calls = []
-    real_branch = TA._accumulate_direct_kernel
-
-    def spy(*args):
-        branch_calls.append(1)
-        return real_branch(*args)
-
-    TA._accumulate_direct_kernel = spy
-    try:
-        cpu_tables = cat8.blocks("cpu")
-        for name, plan_fn in queries:
-            n0, f0 = len(branch_calls), SF_.FUSE_STATS["count"]
-            out, summary = run_query(plan_fn(), cpu_tables)
-            cpu8[name] = block_result(out)
-            cpu_retries[name] = summary.retries
-            predicted[name] = (len(branch_calls) - n0, SF_.FUSE_STATS["count"] - f0)
-        del cpu_tables
-    finally:
-        TA._accumulate_direct_kernel = real_branch
+    cpu_tables = cat8.blocks("cpu")
+    for name, plan_fn in queries:
+        cpu8[name], cpu_retries[name], predicted[name] = cpu_run_with_spy(
+            plan_fn(), cpu_tables)
+    del cpu_tables
     a8 = tpch8_arrays(cat8)
     for name, fn in NUMPY8.items():
         want = fn(a8)
@@ -987,24 +1022,8 @@ def eight_table_phase(card: str, sf: float = SF) -> None:
     torch.cuda.synchronize()
     SA.LAUNCHES = DA.LAUNCHES = 0
     for name, plan_fn in queries:
-        d0, s0, f0 = DA.LAUNCHES, SA.LAUNCHES, SF_.FUSE_STATS["count"]
-        out, summary = run_query(plan_fn(), gpu8)
-        torch.cuda.synchronize()
-        direct, stream, fused = (DA.LAUNCHES - d0, SA.LAUNCHES - s0,
-                                 SF_.FUSE_STATS["count"] - f0)
-        want_branch, want_fused = predicted[name]
-        if ((direct > 0) != (want_branch > 0) or fused != want_fused
-                or (stream > 0) != (want_fused > 0)):
-            raise AssertionError(
-                f"{name}: direct_agg launches {direct}, stream_agg launches {stream}, "
-                f"fused runs {fused}; the CPU dispatch predicts {want_branch} "
-                f"direct_agg branch calls and {want_fused} fused runs")
-        if summary.device != "cuda:0" or summary.retries != cpu_retries[name]:
-            raise AssertionError(f"{name}: ran on {summary.device} with "
-                                 f"{summary.retries} retries (CPU: {cpu_retries[name]})")
-        got = block_result(out)
-        if got != cpu8[name]:
-            raise AssertionError(f"{name}: cuda result != cpu result\n{got}\n{cpu8[name]}")
+        got, summary, direct, stream = card_run_checked(
+            name, plan_fn(), gpu8, cpu8[name], cpu_retries[name], predicted[name])
         checked = " and numpy" if name in NUMPY8 else ""
         print(f"{name} sf{sf} on cuda: {summary.result_rows} rows, {summary.retries} "
               f"retries {summary.overflow_nodes}, direct_agg launches {direct}, "
@@ -1016,7 +1035,149 @@ def eight_table_phase(card: str, sf: float = SF) -> None:
         q_ms = time_ms(lambda: run_query(plan, gpu8), WARM_RUNS)
         print(f"{name} sf{sf} run_query median {q_ms:.3f} ms over {WARM_RUNS} warm "
               f"runs, {cpu_retries[name]} retries each [{card}]")
-    del gpu8
+    return cat8, gpu8, cpu8
+
+
+SPEC_RUNS = 5
+
+
+def spec_phase(card: str, names, cpu_tables, gpu_tables, builder_cpu: dict,
+               sf: float = SF) -> None:
+    """The spec-form TPC-H queries ``names`` (``bench/tpch_spec.py``) on one
+    catalog: each through ``run_query`` on the CPU with the kernel spy,
+    then on the card with the launch counts set to 0 just before and read
+    just after, bit-exact against the CPU run.  Then each builder on the
+    card: its rows must equal its CPU run's (``builder_cpu``, held to numpy
+    elsewhere; filled here where missing), and the spec rows must equal
+    them where the quantity is the same.  Prints each spec query's
+    ``run_query`` median beside its builder's and whether it fused."""
+    import torch
+
+    from tiflash_tpu_torch.bench.tpch_spec import SPEC_QUERIES
+    from tiflash_tpu_torch.ops import stream_fuse as SF_
+    from tiflash_tpu_torch.ops.cuda import direct_agg as DA, stream_agg as SA
+    from tiflash_tpu_torch.runtime.executor import run_query
+
+    cpu, retries, predicted = {}, {}, {}
+    for name in names:
+        spec, builder, _ = SPEC_QUERIES[name]
+        cpu[name], retries[name], predicted[name] = cpu_run_with_spy(spec(), cpu_tables)
+        if name not in builder_cpu:
+            builder_cpu[name] = block_result(run_query(builder(), cpu_tables)[0])
+    torch.cuda.synchronize()
+    SA.LAUNCHES = DA.LAUNCHES = 0
+    for name in names:
+        spec, _, _ = SPEC_QUERIES[name]
+        card_run_checked(f"{name}_spec", spec(), gpu_tables, cpu[name],
+                         retries[name], predicted[name])
+    launches = (SA.LAUNCHES, DA.LAUNCHES)
+    for name in names:
+        spec, builder, same = SPEC_QUERIES[name]
+        b0 = SF_.FUSE_STATS["count"]
+        got_b = block_result(run_query(builder(), gpu_tables)[0])
+        builder_fused = SF_.FUSE_STATS["count"] > b0
+        if got_b != builder_cpu[name]:
+            raise AssertionError(f"{name}: builder's cuda result != its cpu result")
+        if same and cpu[name][0] != got_b[0]:
+            raise AssertionError(f"{name}: spec rows != builder rows on the card\n"
+                                 f"{cpu[name][0]}\n{got_b[0]}")
+        sp, bp = spec(), builder()
+        spec_ms = time_ms(lambda: run_query(sp, gpu_tables), SPEC_RUNS)
+        builder_ms = time_ms(lambda: run_query(bp, gpu_tables), SPEC_RUNS)
+        print(f"{name} spec form sf{sf} on cuda: bit-exact vs port CPU run"
+              + (", equal to the builder's rows" if same else "")
+              + f"; fused {bool(predicted[name][1])} (builder {builder_fused}); "
+              f"run_query median {spec_ms:.3f} ms, builder {builder_ms:.3f} ms, "
+              f"over {SPEC_RUNS} warm runs [{card}]")
+        if name in ("q8", "q12", "q14"):
+            print(f"  {name} spec rows: {cpu[name][0]}")
+    print(f"spec-form {', '.join(names)}: stream_agg launches {launches[0]}, "
+          f"direct_agg launches {launches[1]} (as the CPU dispatch predicts: "
+          f"{[predicted[n] for n in names]})")
+
+
+def _ulp_key(t):
+    """float64 tensor -> int64 keys whose differences count ulps."""
+    import torch
+
+    i = t.view(torch.int64)
+    return torch.where(i >= 0, i, torch.iinfo(torch.int64).min - i)
+
+
+def compare_sweep(gpu_out, cpu_out, ulps: dict) -> dict:
+    """Column by column and row by row: validity equal, values equal on
+    valid rows (bit patterns; wide decimals limb by limb), except the
+    columns of ``ulps``, held within their ulp bound.  Returns the largest
+    ulp gap of each bounded column."""
+    import torch
+
+    gaps = {}
+    for name, g, c in zip(gpu_out.names, gpu_out.columns, cpu_out.columns):
+        if not g.data.is_cuda or (g.validity is not None and not g.validity.is_cuda):
+            raise AssertionError(f"sweep column {name} left the card")
+        if repr(g.dtype) != repr(c.dtype):
+            raise AssertionError(f"sweep column {name}: {g.dtype} != {c.dtype}")
+        valid = c.valid_mask()
+        if not torch.equal(g.valid_mask().cpu(), valid):
+            raise AssertionError(f"sweep column {name}: NULLs differ")
+        gd, cd = g.data.cpu()[valid], c.data[valid]
+        if gd.dtype in (torch.float64, torch.float32, torch.uint64):
+            gd, cd = gd.to(torch.float64) if gd.dtype == torch.float32 else gd, \
+                cd.to(torch.float64) if cd.dtype == torch.float32 else cd
+            gd, cd = gd.view(torch.int64), cd.view(torch.int64)
+        if name in ulps:
+            gap = int((_ulp_key(gd.view(torch.float64))
+                       - _ulp_key(cd.view(torch.float64))).abs().max())
+            if gap > ulps[name]:
+                raise AssertionError(f"sweep column {name}: {gap} ulps > {ulps[name]}")
+            gaps[name] = gap
+        elif not torch.equal(gd, cd):
+            bad = int((gd != cd).reshape(len(gd), -1).any(dim=1).sum())
+            raise AssertionError(f"sweep column {name}: {bad} rows differ")
+    return gaps
+
+
+def sweep_phase(card: str, cpu_tables, gpu_tables) -> None:
+    """``functions_sweep_plan()`` over lineitem on the card against the
+    port's CPU run, column by column and row by row (``compare_sweep``),
+    with the launch counts set to 0 just before and read just after (the
+    sweep has no aggregation: none may launch).  Then each family's
+    expressions, evaluated on the card over the sweep's materialized
+    inputs, synchronized and timed."""
+    import torch
+
+    from tiflash_tpu_torch.bench.tpch_spec import (SWEEP_FAMILIES, SWEEP_ULPS,
+                                                   functions_sweep_plan,
+                                                   sweep_base_plan)
+    from tiflash_tpu_torch.expr.compile import ExprEvaluator
+    from tiflash_tpu_torch.ops.cuda import direct_agg as DA, stream_agg as SA
+    from tiflash_tpu_torch.runtime.executor import run_query
+
+    plan = functions_sweep_plan()
+    t0 = time.perf_counter()
+    cpu_out, _ = run_query(plan, cpu_tables)
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    SA.LAUNCHES = DA.LAUNCHES = 0
+    gpu_out, summary = run_query(plan, gpu_tables)
+    torch.cuda.synchronize()
+    if SA.LAUNCHES or DA.LAUNCHES:
+        raise AssertionError("the function sweep launched an aggregation kernel")
+    if summary.device != "cuda:0":
+        raise AssertionError(f"sweep: result on {summary.device}")
+    gaps = compare_sweep(gpu_out, cpu_out, SWEEP_ULPS)
+    print(f"function sweep sf{SF} on cuda: {len(gpu_out.names)} columns x "
+          f"{gpu_out.capacity} rows equal the port's CPU run ({cpu_s:.1f} s); "
+          f"integers, decimals, dates, datetimes, bools and exact floats "
+          f"bit-exact; transcendental columns within {SWEEP_ULPS} ulps, largest "
+          f"gaps seen {gaps}")
+    del cpu_out, gpu_out
+    base, _ = run_query(sweep_base_plan(), gpu_tables)
+    ev = ExprEvaluator(base)
+    for fam, exprs in SWEEP_FAMILIES.items():
+        ms = time_ms(lambda: [ev.evaluate(e) for e in exprs.values()], SPEC_RUNS)
+        print(f"  sweep family {fam}: {len(exprs)} columns over {base.capacity} rows "
+              f"in {ms:.3f} ms (median of {SPEC_RUNS}, synchronized) [{card}]")
 
 
 def main() -> int:
@@ -1145,6 +1306,11 @@ def main() -> int:
               f"runs; stream_agg regime {lp.regime} (variant {lp.variant}), headroom "
               f"{c[5]}, 16-byte path {lp.vector} [{card}]")
         print("  " + yardstick_line(f"{name} stream_agg", y, card))
+
+    # ---- 4b. spec-form Q1 and Q6, and the function sweep, on lineitem ----
+    spec_phase(card, ("q1", "q6"), cpu_tables, gpu_tables,
+               {"q1": cpu_res["q1"], "q6": cpu_res["q6"]})
+    sweep_phase(card, cpu_tables, gpu_tables)
     del gpu_tables
 
     # ---- 5. Q7 and Q7 over all nation pairs at SF1 on the card -------------------
@@ -1273,7 +1439,12 @@ def main() -> int:
     del big
 
     # ---- 7. Q2-Q21 at SF1 on the eight-table catalog ---------------------------
-    eight_table_phase(card)
+    cat8, gpu8, cpu8 = eight_table_phase(card)
+
+    # ---- 8. spec-form Q4, Q8, Q12 and Q14 on the eight-table catalog ------------
+    spec_phase(card, ("q4", "q8", "q12", "q14"), cat8.blocks("cpu"), gpu8,
+               {"q8": cpu8["q8"], "q12": cpu8["q12"]})
+    del gpu8
 
     q1y = stream_y["q1"]
 

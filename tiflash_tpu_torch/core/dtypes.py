@@ -9,8 +9,10 @@ prove it fits ("narrow-stored") or as ``(n, L)`` int64 limbs
 (``core/wide.py``).
 
 Changes from the reference: ``torch_dtype`` in place of ``jnp_dtype``;
-the MySQL-specific type flags (time zone, ENUM, YEAR, JSON, BLOB) and
-the civil-date helpers come with the functions slice of the port.
+of the MySQL-specific type flags only ``tz_aware`` (TIMESTAMP) is here:
+ENUM, YEAR, JSON and BLOB come with the string slice of the port.  The
+zero-date sentinels and the host-side civil-date helpers and values
+(``CivilDate``, ``ZeroDate`` ...) are the reference's.
 """
 
 from __future__ import annotations
@@ -101,6 +103,10 @@ class DataType:
     # Decimal parameters (kind == DECIMAL only).
     precision: int = 0
     scale: int = 0
+    # MySQL TIMESTAMP semantics (kind == DATETIME only): values are stored
+    # as UTC microseconds and shift into the session time zone at column
+    # read (``expr/compile.py``, ``query_timezone``).
+    tz_aware: bool = False
 
     # ---- physical representation ----
     @property
@@ -182,9 +188,155 @@ DURATION = DataType(TypeKind.DURATION)
 STRING = DataType(TypeKind.STRING)
 
 
+# MySQL TIME range: +-838:59:59.000000
+DURATION_MAX_US = 3_020_399_000_000
+
 # MySQL's ZERO date ('0000-00-00') as stored days since the epoch: a
-# sentinel far below any civil date the engine produces
+# sentinel far below any civil date the engine produces.  A zero DATETIME
+# keeps its time of day: it lives in [ZERO_DT_BASE_US, + one day).
 ZERO_DATE_DAYS = -3_650_000
+ZERO_DT_BASE_US = ZERO_DATE_DAYS * 86_400_000_000
+# PARTIAL zero dates ('2012-00-00') pack into a sentinel day range below
+# any civil date (year-0 dates bottom out at -719468); the whole range
+# sorts below real dates, as in the reference.
+PARTIAL_ZERO_BASE = -30_000_000
+
+
+def partial_zero_days(y: int, m: int, d: int) -> int:
+    return PARTIAL_ZERO_BASE + (y * 13 + m) * 32 + d
+
+
+def partial_zero_civil(days: int):
+    ym, d = divmod(days - PARTIAL_ZERO_BASE, 32)
+    y, m = divmod(ym, 13)
+    return y, m, d
+
+
+def is_partial_zero_days(v: int) -> bool:
+    return PARTIAL_ZERO_BASE <= v < PARTIAL_ZERO_BASE + 10_000 * 13 * 32
+
+
+def _trunc_div(a: int, b: int) -> int:
+    """C integer division (toward zero), which Hinnant's civil
+    algorithms assume."""
+    q = abs(a) // abs(b)
+    return -q if (a < 0) != (b < 0) else q
+
+
+def civil_to_days(y: int, m: int, d: int) -> int:
+    """Proleptic-Gregorian (y, m, d) -> days since 1970-01-01 for any
+    year (python's datetime covers only 1..9999)."""
+    y -= m <= 2
+    era = _trunc_div(y if y >= 0 else y - 399, 400)
+    yoe = y - era * 400
+    doy = (153 * (m + (-3 if m > 2 else 9)) + 2) // 5 + d - 1
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return era * 146097 + doe - 719468
+
+
+def days_to_civil(days: int):
+    """Inverse of ``civil_to_days``."""
+    z = days + 719468
+    era = _trunc_div(z if z >= 0 else z - 146096, 146097)
+    doe = z - era * 146097
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = (5 * doy + 2) // 153
+    d = doy - (153 * mp + 2) // 5 + 1
+    m = mp + (3 if mp < 10 else -9)
+    return y + (m <= 2), m, d
+
+
+class CivilDate:
+    """A DATE outside python's year 1..9999, by its civil fields."""
+
+    def __init__(self, y: int, m: int, d: int):
+        self.y, self.m, self.d = y, m, d
+
+    @property
+    def epoch_days(self) -> int:
+        if self.m == 0 or self.d == 0:
+            # partial zero date: civil math would alias it
+            return partial_zero_days(self.y, self.m, self.d)
+        return civil_to_days(self.y, self.m, self.d)
+
+    def __repr__(self):
+        return f"{self.y:04d}-{self.m:02d}-{self.d:02d}"
+
+    __str__ = __repr__
+
+    def __eq__(self, other):
+        return (isinstance(other, CivilDate)
+                and (other.y, other.m, other.d) == (self.y, self.m, self.d))
+
+    def __hash__(self):
+        return hash(("civil", self.y, self.m, self.d))
+
+
+class CivilDateTime(CivilDate):
+    """A DATETIME outside python's year range."""
+
+    def __init__(self, y, m, d, hh=0, mi=0, ss=0, us=0):
+        super().__init__(y, m, d)
+        self.hh, self.mi, self.ss, self.us = hh, mi, ss, us
+
+    @property
+    def epoch_us(self) -> int:
+        tod = ((self.hh * 3600 + self.mi * 60 + self.ss) * 1_000_000
+               + self.us)
+        return self.epoch_days * 86_400_000_000 + tod
+
+    def __repr__(self):
+        base = (f"{self.y:04d}-{self.m:02d}-{self.d:02d} "
+                f"{self.hh:02d}:{self.mi:02d}:{self.ss:02d}")
+        return base + (f".{self.us:06d}" if self.us else "")
+
+    __str__ = __repr__
+
+    def __eq__(self, other):
+        return isinstance(other, CivilDateTime) and str(other) == str(self)
+
+    def __hash__(self):
+        return hash(("civildt", str(self)))
+
+
+class ZeroDate:
+    """Host-side value of '0000-00-00' (storable, distinct from NULL)."""
+
+    def __repr__(self):
+        return "0000-00-00"
+
+    __str__ = __repr__
+
+    def __eq__(self, other):
+        return isinstance(other, ZeroDate)
+
+    def __hash__(self):
+        return hash("0000-00-00")
+
+
+class ZeroDateTime:
+    """Host-side value of '0000-00-00 HH:MM:SS[.ffffff]'."""
+
+    def __init__(self, tod_us: int = 0):
+        self.tod_us = int(tod_us)
+
+    def __repr__(self):
+        t = self.tod_us
+        h, t = divmod(t, 3_600_000_000)
+        m, t = divmod(t, 60_000_000)
+        s, us = divmod(t, 1_000_000)
+        base = f"0000-00-00 {h:02d}:{m:02d}:{s:02d}"
+        return base + (f".{us:06d}" if us else "")
+
+    __str__ = __repr__
+
+    def __eq__(self, other):
+        return isinstance(other, ZeroDateTime) and other.tod_us == self.tod_us
+
+    def __hash__(self):
+        return hash(("0000-00-00", self.tod_us))
 
 
 def Decimal(precision: int, scale: int, nullable: bool = False) -> DataType:
@@ -214,9 +366,17 @@ def common_numeric_type(a: DataType, b: DataType) -> DataType:
     return DataType(TypeKind.INT64, nullable)
 
 
+def comparison_result_type(a: DataType, b: DataType) -> DataType:
+    return DataType(TypeKind.BOOL, a.nullable or b.nullable)
+
+
 __all__ = [
     "TypeKind", "DataType", "Decimal",
     "INT8", "INT16", "INT32", "INT64", "UINT8", "UINT32", "UINT64",
     "FLOAT32", "FLOAT64", "BOOL", "DATE", "DATETIME", "DURATION", "STRING",
-    "common_numeric_type", "ZERO_DATE_DAYS",
+    "common_numeric_type", "comparison_result_type", "DURATION_MAX_US",
+    "ZERO_DATE_DAYS", "ZERO_DT_BASE_US", "PARTIAL_ZERO_BASE",
+    "partial_zero_days", "partial_zero_civil", "is_partial_zero_days",
+    "civil_to_days", "days_to_civil", "CivilDate", "CivilDateTime",
+    "ZeroDate", "ZeroDateTime",
 ]

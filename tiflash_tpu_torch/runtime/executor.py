@@ -14,7 +14,8 @@ false also moves to the general join path.
 
 Not ported: the mesh (distributed) path, auto-sizing, out-of-core
 fallbacks and the rest of the reference's ``Settings``.  They come with
-later slices.
+later slices.  The query clock (NOW(), CURDATE(), RAND() without a seed)
+is pinned once per run, as the reference's executor does.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import time
 from typing import Dict, List, Tuple
 
 from ..core.block import Block
+from ..expr.compile import query_clock, query_now_us
 from ..plan import nodes as P
 from ..plan.compiler import Diagnostics, execute_plan
 
@@ -88,6 +90,12 @@ def run_query(
         raise NotImplementedError(
             "run_query over a mesh comes with the distribution slice of the "
             "port; this runner is single-device")
+    # one NOW() for the whole query, retries included
+    with query_clock(query_now_us()):
+        return _run(plan, tables, fuse_stream_agg, plan_rewrites)
+
+
+def _run(plan, tables, fuse_stream_agg, plan_rewrites):
     t_start = time.perf_counter()
     if plan_rewrites:
         from ..plan.rewrite import eager_aggregation, prune_columns

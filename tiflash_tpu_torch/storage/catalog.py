@@ -144,7 +144,8 @@ class Catalog:
 
 def _dtype_from_desc(desc: dict) -> DataType:
     return DataType(TypeKind[desc["kind"]], nullable=bool(desc["nullable"]),
-                    precision=int(desc["precision"]), scale=int(desc["scale"]))
+                    precision=int(desc["precision"]), scale=int(desc["scale"]),
+                    tz_aware=bool(desc.get("tz_aware", False)))
 
 
 def blocks_from_numpy(tables: Dict[str, dict], device) -> Dict[str, Block]:
@@ -153,8 +154,8 @@ def blocks_from_numpy(tables: Dict[str, dict], device) -> Dict[str, Block]:
     ``tables`` maps a table name to ``{"names", "columns", "sel",
     "clustered_by"}``; each column is ``{"data", "validity", "dtype",
     "dictionary", "stats", "domain", "ndv"}`` with ``dtype`` a dict of ``kind``
-    (a ``TypeKind`` member name), ``precision``, ``scale`` and
-    ``nullable``.  Stats and NDV are taken as given (they are invariants
+    (a ``TypeKind`` member name), ``precision``, ``scale``, ``nullable``
+    and optionally ``tz_aware``.  Stats and NDV are taken as given (they are invariants
     the producer proved); the int32 shadow follows the reference's rule.
     """
     out: Dict[str, Block] = {}

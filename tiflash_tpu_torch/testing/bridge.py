@@ -27,7 +27,8 @@ def _export_column(col) -> dict:
         "data": np.asarray(col.data),
         "validity": _array(col.validity),
         "dtype": {"kind": dt.kind.name, "precision": int(dt.precision),
-                  "scale": int(dt.scale), "nullable": bool(dt.nullable)},
+                  "scale": int(dt.scale), "nullable": bool(dt.nullable),
+                  "tz_aware": bool(getattr(dt, "tz_aware", False))},
         "dictionary": (None if col.dictionary is None
                        else tuple(col.dictionary)),
         "stats": None if stats is None else (int(stats[0]), int(stats[1])),
