@@ -9,7 +9,12 @@ version on the card.  Then it drives three paths through
 random data from seed 0:
 
 - TPC-H Q1 and Q6 over the lineitem table (5,999,438 rows), which run
-  the stream_agg kernel;
+  the stream_agg kernel; then on the same table the spec-form Q1/Q6, the
+  function sweep, and the string phase (``string_phase``): the string
+  sweep of ``bench/strings.py`` against the CPU run with dictionaries as
+  tuples, the ship-month report (a GROUP BY over two string expressions,
+  553 slots on the direct_agg kernel) against the CPU run and numpy, and
+  the runtime error of CAST(l_shipmode AS JSON);
 - TPC-H Q7 and Q7 over all nation pairs over the five-table catalog
   (nation, supplier, customer, orders, lineitem), which join and then
   aggregate by the sort method (Q7) or the direct_agg kernel (Q7-pairs);
@@ -143,10 +148,47 @@ def lineitem_arrays(cat) -> dict:
     t = cat["lineitem"].block
     li = {n: t[n].data.numpy() for n in (
         "l_orderkey", "l_shipdate", "l_returnflag", "l_linestatus", "l_quantity",
-        "l_extendedprice", "l_discount", "l_tax")}
+        "l_extendedprice", "l_discount", "l_tax", "l_shipmode")}
     li["rf_dict"] = t["l_returnflag"].dictionary
     li["ls_dict"] = t["l_linestatus"].dictionary
+    li["sm_dict"] = t["l_shipmode"].dictionary
     return li
+
+
+def numpy_ship_month(li: dict) -> dict:
+    """The ship-month report over host arrays: months from datetime64[M],
+    modes lower-cased on the mode dictionary, sums by ``np.add.at``, rows
+    in (month, mode) order."""
+    import numpy as np
+
+    months = li["l_shipdate"].astype("datetime64[D]").astype("datetime64[M]")
+    month_no = months.astype(np.int64)
+    lowered = [m.lower() for m in li["sm_dict"]]
+    modes = sorted(set(lowered))
+    mode_rank = np.array([modes.index(m) for m in lowered])[li["l_shipmode"]]
+    m0 = int(month_no.min())
+    key = (month_no - m0) * len(modes) + mode_rank
+    sums = {}
+    for name, vals in (("count_order", np.ones(len(key), np.int64)),
+                       ("sum_qty", li["l_quantity"]),
+                       ("sum_price", li["l_extendedprice"]),
+                       ("disc", li["l_discount"])):
+        acc = np.zeros(int(key.max()) + 1, np.int64)
+        np.add.at(acc, key, vals)
+        sums[name] = acc
+    out = {k: [] for k in ("ship_month", "mode", "count_order", "sum_qty",
+                           "sum_price", "avg_disc")}
+    for k in np.nonzero(sums["count_order"])[0].tolist():
+        n = int(sums["count_order"][k])
+        month = np.datetime64(m0 + k // len(modes), "M")
+        out["ship_month"].append(np.datetime_as_string(month, unit="M"))
+        out["mode"].append(modes[k % len(modes)])
+        out["count_order"].append(n)
+        out["sum_qty"].append(int(sums["sum_qty"][k]))
+        out["sum_price"].append(int(sums["sum_price"][k]))
+        # avg of a scale-2 decimal is scale 6: sum * 10^4 / n, half up
+        out["avg_disc"].append(_half_up_div(int(sums["disc"][k]) * 10 ** 4, n))
+    return out
 
 
 def q7_arrays(cat) -> dict:
@@ -1112,11 +1154,15 @@ def compare_sweep(gpu_out, cpu_out, ulps: dict) -> dict:
     import torch
 
     gaps = {}
+    if list(gpu_out.names) != list(cpu_out.names):
+        raise AssertionError(f"sweep columns differ: {gpu_out.names} != {cpu_out.names}")
     for name, g, c in zip(gpu_out.names, gpu_out.columns, cpu_out.columns):
         if not g.data.is_cuda or (g.validity is not None and not g.validity.is_cuda):
             raise AssertionError(f"sweep column {name} left the card")
         if repr(g.dtype) != repr(c.dtype):
             raise AssertionError(f"sweep column {name}: {g.dtype} != {c.dtype}")
+        if g.dictionary != c.dictionary:
+            raise AssertionError(f"sweep column {name}: dictionaries differ")
         valid = c.valid_mask()
         if not torch.equal(g.valid_mask().cpu(), valid):
             raise AssertionError(f"sweep column {name}: NULLs differ")
@@ -1178,6 +1224,157 @@ def sweep_phase(card: str, cpu_tables, gpu_tables) -> None:
         ms = time_ms(lambda: [ev.evaluate(e) for e in exprs.values()], SPEC_RUNS)
         print(f"  sweep family {fam}: {len(exprs)} columns over {base.capacity} rows "
               f"in {ms:.3f} ms (median of {SPEC_RUNS}, synchronized) [{card}]")
+
+
+def device_busy_ms(fn):
+    """Summed device time of the CUDA kernels and copies ``fn()`` runs, from
+    one ``torch.profiler`` trace; None where the trace holds no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 if us else None
+
+
+JSON_ERROR = "Invalid JSON text: The document root must not be followed by other values."
+
+
+def string_phase(card: str, cpu_tables, gpu_tables, li: dict) -> dict:
+    """The string slice on the lineitem catalog.
+
+    1. ``strings_sweep_plan()`` on the card against the port's CPU run,
+       column by column and row by row, dictionaries as tuples (tolerance
+       zero), with the launch counts set to 0 just before and read just
+       after (no aggregation: none may launch); then each family's
+       expressions over the sweep's materialized inputs, synchronized and
+       timed.
+    2. ``ship_month_plan()`` on the card against the CPU run and
+       ``numpy_ship_month``: one direct_agg launch per run; its warm
+       ``run_query`` median, device busy time and idle share; the captured
+       ``direct_sums`` call held kernel == plain; the kernel timed at its
+       captured ``group_sums`` arguments (``direct_agg_yardsticks``).
+    3. CAST(l_shipmode AS JSON): no mode is a JSON document, so the run
+       raises the reference's ``EngineError``; behind a selection that
+       keeps no row it does not.
+
+    Returns the ship-month report's launches and yardsticks."""
+    import torch
+
+    from tiflash_tpu_torch.bench.strings import (STRING_SWEEP_FAMILIES,
+                                                 ship_month_plan,
+                                                 strings_sweep_base_plan,
+                                                 strings_sweep_plan)
+    from tiflash_tpu_torch.expr.compile import ExprEvaluator
+    from tiflash_tpu_torch.expr.nodes import call, col
+    from tiflash_tpu_torch.ops.cuda import direct_agg as DA, stream_agg as SA
+    from tiflash_tpu_torch.plan import nodes as P
+    from tiflash_tpu_torch.runtime.errors import EngineError
+    from tiflash_tpu_torch.runtime.executor import run_query
+
+    # ---- the string sweep ----
+    plan = strings_sweep_plan()
+    t0 = time.perf_counter()
+    cpu_out, _ = run_query(plan, cpu_tables)
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    SA.LAUNCHES = DA.LAUNCHES = 0
+    t0 = time.perf_counter()
+    gpu_out, summary = run_query(plan, gpu_tables)
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    if SA.LAUNCHES or DA.LAUNCHES:
+        raise AssertionError("the string sweep launched an aggregation kernel")
+    if summary.device != "cuda:0":
+        raise AssertionError(f"string sweep: result on {summary.device}")
+    compare_sweep(gpu_out, cpu_out, {})
+    print(f"string sweep sf{SF} on cuda: {len(gpu_out.names)} columns x "
+          f"{gpu_out.capacity} rows equal the port's CPU run (codes, dictionaries, "
+          f"integers, dates, durations and NULLs bit-exact; CPU {cpu_s:.1f} s, first "
+          f"card run {gpu_s:.2f} s), no kernel launched")
+    del cpu_out, gpu_out
+    base, _ = run_query(strings_sweep_base_plan(), gpu_tables)
+    ev = ExprEvaluator(base)
+    for fam, exprs in STRING_SWEEP_FAMILIES.items():
+        ms = time_ms(lambda: [ev.evaluate(e) for e in exprs.values()], SPEC_RUNS)
+        print(f"  string family {fam}: {len(exprs)} columns over {base.capacity} "
+              f"rows in {ms:.3f} ms (median of {SPEC_RUNS}, synchronized) [{card}]")
+    del base, ev
+
+    # ---- the ship-month report ----
+    cpu_res = block_result(run_query(ship_month_plan(), cpu_tables)[0])
+    want = numpy_ship_month(li)
+    if cpu_res[0] != want:
+        raise AssertionError(f"ship_month: port CPU run != numpy\n{cpu_res[0]}\n{want}")
+    torch.cuda.synchronize()
+    SA.LAUNCHES = DA.LAUNCHES = 0
+    out, summary = run_query(ship_month_plan(), gpu_tables)
+    torch.cuda.synchronize()
+    launches = DA.LAUNCHES
+    if launches != 1 or SA.LAUNCHES:
+        raise AssertionError(f"ship_month: direct_agg launches {launches}, "
+                             f"stream_agg launches {SA.LAUNCHES}; expected 1 and 0")
+    got = block_result(out)
+    if got != cpu_res:
+        raise AssertionError(f"ship_month: cuda result != cpu result\n{got}\n{cpu_res}")
+    if summary.device != "cuda:0" or summary.retries:
+        raise AssertionError(f"ship_month: ran on {summary.device} with "
+                             f"{summary.retries} retries")
+    plan = ship_month_plan()
+    captured = capture_calls(DA, "direct_sums", lambda: run_query(plan, gpu_tables))
+    if len(captured) != 1:
+        raise AssertionError(f"ship_month: {len(captured)} direct_sums calls")
+    slots, values, masks, live, n_slots = captured[0]
+    k_out = DA.direct_sums(slots, values, masks, live, n_slots)
+    p_out = DA.direct_sums_plain(slots, values, masks, live, n_slots)
+    torch.cuda.synchronize()
+    pairs = [(k_out[0], p_out[0]), (k_out[1], p_out[1])] + list(zip(k_out[2], p_out[2]))
+    max_err = max(int((a - b).abs().max()) for a, b in pairs)
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f"ship_month: direct_agg kernel != plain (max abs err "
+                             f"{max_err})")
+    n_groups = int((k_out[1] > 0).sum())
+    print(f"ship_month sf{SF} on cuda: {summary.result_rows} groups of a {n_slots}-slot "
+          f"domain, direct_agg launches {launches}, bit-exact vs port CPU run and numpy;"
+          f" kernel == plain at the captured direct_sums call ({len(values)} value "
+          f"columns, {n_groups} occupied slots)")
+    print(f"  ship_month rows (first 3): " + str({k: v[:3] for k, v in got[0].items()}))
+    q_ms = time_ms(lambda: run_query(plan, gpu_tables), WARM_RUNS)
+    busy = device_busy_ms(lambda: run_query(plan, gpu_tables))
+    busy_txt = ("device busy not measured (the trace held no device time)"
+                if busy is None else f"device busy {busy:.3f} ms, idle share "
+                f"{1 - busy / q_ms:.1%} of the median")
+    print(f"ship_month sf{SF} run_query median {q_ms:.3f} ms over {WARM_RUNS} warm "
+          f"runs; {busy_txt} [{card}]")
+    flush = L2Flush()
+    groups = capture_calls(DA, "group_sums", lambda: run_query(plan, gpu_tables))
+    y = direct_agg_yardsticks(DA, groups, flush)
+    print("  " + yardstick_line("ship_month direct_agg", y, card))
+
+    # ---- the runtime error channel on the card ----
+    bad = P.Projection({"j": call("cast_as_json", col("l_shipmode"))},
+                       P.TableScan("lineitem"))
+    try:
+        run_query(bad, gpu_tables)
+    except EngineError as e:
+        if str(e) != JSON_ERROR:
+            raise AssertionError(f"cast_as_json: raised {e!r}") from None
+    else:
+        raise AssertionError("cast_as_json over l_shipmode did not raise")
+    dead = P.Projection({"j": call("cast_as_json", col("l_shipmode"))},
+                        P.Selection(col("l_linenumber") > 7, P.TableScan("lineitem")))
+    out, summary = run_query(dead, gpu_tables)
+    if summary.result_rows != 0 or out["j"].data.device.type != "cuda":
+        raise AssertionError("cast_as_json behind an empty selection")
+    print(f"runtime errors on cuda: CAST(l_shipmode AS JSON) raises EngineError "
+          f"{JSON_ERROR!r}; behind l_linenumber > 7 (no live row) it does not")
+    return {"launches": launches, "max_abs_err": max_err, "yardsticks": y}
 
 
 def main() -> int:
@@ -1311,6 +1508,7 @@ def main() -> int:
     spec_phase(card, ("q1", "q6"), cpu_tables, gpu_tables,
                {"q1": cpu_res["q1"], "q6": cpu_res["q6"]})
     sweep_phase(card, cpu_tables, gpu_tables)
+    ship = string_phase(card, cpu_tables, gpu_tables, li)
     del gpu_tables
 
     # ---- 5. Q7 and Q7 over all nation pairs at SF1 on the card -------------------
@@ -1461,7 +1659,11 @@ def main() -> int:
               main_path_launches, max_err, q1y),
         dict(entry("direct_agg", "tiflash_tpu/ops/pallas/direct_agg.py:116",
                    q7_launches, direct_err, direct_y),
-             sector_bound_ms=direct_y["sector_bound_ms"]),
+             sector_bound_ms=direct_y["sector_bound_ms"],
+             ship_month={"launches": ship["launches"],
+                         "max_abs_err": ship["max_abs_err"],
+                         **{k: ship["yardsticks"][k] for k in (
+                             "ms", "plain_ms", "bound_ms", "library_ms")}}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -388,8 +388,14 @@ def test_function_matches_reference(blocks, case):
 
 
 def test_every_new_function_has_a_case():
+    """Each name of the functions slice has a case here; the string
+    slice's names have theirs in ``test_torch_strings.py`` and
+    ``test_torch_duration.py``."""
+    from test_torch_strings import REGISTRY_NAMES
+    from test_torch_duration import DURATION_NAMES
+
     named = {c.split()[0] for c in CASES}
-    new = set(T_REGISTRY) - OLD_NAMES
+    new = set(T_REGISTRY) - OLD_NAMES - set(REGISTRY_NAMES) - set(DURATION_NAMES)
     assert len(new) == 123
     assert sorted(new - named) == []
     assert named - {"extract", "date_add", "date_sub", "now", "curdate", "pi"} \
@@ -452,12 +458,15 @@ def test_query_timezone_shifts_timestamps_and_unix_time(blocks):
 
 
 def test_empty_call_and_string_paths_raise(blocks):
+    """An empty call of a function that takes arguments raises; the
+    string paths the string slice brought (CURTIME's text, COALESCE of a
+    TIME and an integer as text) equal the reference's."""
     _, tb = blocks
     from tiflash_tpu_torch.runtime.errors import EngineError
 
     with pytest.raises(EngineError, match="parameter count.*'ceiling'"):
         TC.ExprEvaluator(tb).evaluate(TE.call("ceiling"))
-    with pytest.raises(NotImplementedError, match="string slice"):
-        TC.ExprEvaluator(tb).evaluate(TE.call("curtime"))
-    with pytest.raises(NotImplementedError, match="string slice"):
-        TC.ExprEvaluator(tb).evaluate(TE.call("coalesce", TE.col("dt"), TE.col("i")))
+    for make in (C("curtime"), C("coalesce", "du", "j")):
+        j, t = _eval_both(blocks, make)
+        assert t.dtype.is_string and t.dictionary == tuple(j.dictionary)
+        assert_same_column(j, t)

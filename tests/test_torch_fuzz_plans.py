@@ -3,10 +3,10 @@ package's on seeded random plan trees over random tables with NULLs.
 
 The vocabulary is the reference fuzzer's (``tests/test_fuzz_plans.py``):
 Selection, Projection, Join, Aggregation, TopN and Limit over the same
-schema, less ``length`` and ``bit_or`` (they come with later slices of
-the port) and the right and full outer joins (not ported), plus this
-slice's scalar functions: ``if``, ``negate``, ``case_when``,
-``coalesce``, casts and date parts over a DATE column.  Every tree builds
+schema, less ``bit_or`` (it comes with a later slice of the port) and
+the right and full outer joins (not ported), plus the functions slice's
+scalar functions: ``if``, ``negate``, ``case_when``, ``coalesce``, casts
+and date parts over a DATE column.  Every tree builds
 once for each package from one seed.  Results compare as sorted rows:
 exact, but doubles within 1e-12 relative (the float sums of the two
 packages may add in another order).  A LIMIT keeps any subset
@@ -89,7 +89,7 @@ def _rand_pred(rng, N):
 
 
 PROJECTIONS = ("arith", "cond", "cast_fi", "cast_if", "negate", "case",
-               "coalesce", "date_part", "cast_dec", "date_add")
+               "coalesce", "date_part", "cast_dec", "date_add", "length")
 
 
 def _rand_proj(rng, N):
@@ -118,6 +118,8 @@ def _rand_proj(rng, N):
                    E.call("day_of_week", E.col("dt")))
     elif pick == "cast_dec":
         x = E.cast(E.col("d"), D.Decimal(12, 1, nullable=True))
+    elif pick == "length":
+        x = E.call("length", E.col("s"))
     else:
         x = E.call("datediff", E.call("date_add_months", E.col("dt"),
                                       E.col("a")), E.col("dt"))
@@ -247,4 +249,4 @@ def test_fuzz_vocabulary_reaches_every_projection_and_shape():
             node = node.children[0]
     assert shapes == {"agg", "topn", "limit", "plain"}
     assert {"if", "negate", "case_when", "coalesce", "cast", "plus",
-            "datediff"} <= picks, picks
+            "datediff", "length"} <= picks, picks

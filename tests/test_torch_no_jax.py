@@ -26,10 +26,12 @@ for f in ("numpy_q2", "numpy_q9", "numpy_q13", "numpy_q14", "numpy_q16",
           "numpy_q18", "eight_table_phase"):
     assert callable(getattr(chip_smoke, f)), f
 for f in ("spec_phase", "sweep_phase", "compare_sweep", "cpu_run_with_spy",
-          "card_run_checked"):
+          "card_run_checked", "string_phase", "numpy_ship_month",
+          "device_busy_ms"):
     assert callable(getattr(chip_smoke, f)), f
 for m in ("ops.join", "ops.merge", "ops.cuda.direct_agg", "plan.rewrite",
-          "ops.hashing", "runtime.errors", "bench.tpch_spec"):
+          "ops.hashing", "runtime.errors", "bench.tpch_spec", "expr.regexp_json",
+          "expr.duration", "bench.strings"):
     assert "tiflash_tpu_torch." + m in names, m
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "tiflash_tpu."))

@@ -9,8 +9,9 @@ prove it fits ("narrow-stored") or as ``(n, L)`` int64 limbs
 (``core/wide.py``).
 
 Changes from the reference: ``torch_dtype`` in place of ``jnp_dtype``;
-of the MySQL-specific type flags only ``tz_aware`` (TIMESTAMP) is here:
-ENUM, YEAR, JSON and BLOB come with the string slice of the port.  The
+of the MySQL-specific type flags ``tz_aware`` (TIMESTAMP), ``mysql_json``
+and ``mysql_blob`` are here; ENUM and YEAR are not, as no table of the
+port has such a column.  The
 zero-date sentinels and the host-side civil-date helpers and values
 (``CivilDate``, ``ZeroDate`` ...) are the reference's.
 """
@@ -107,6 +108,13 @@ class DataType:
     # as UTC microseconds and shift into the session time zone at column
     # read (``expr/compile.py``, ``query_timezone``).
     tz_aware: bool = False
+    # JSON columns ride the STRING representation (normalized text); the
+    # flag makes JSON builders embed the value as a document, not a quoted
+    # string, and casts out of JSON unquote a JSON string first
+    mysql_json: bool = False
+    # binary string families carry their MySQL field-type code (BLOB=252,
+    # BINARY=254 ...); CAST(AS JSON) renders them as base64 opaques
+    mysql_blob: int = 0
 
     # ---- physical representation ----
     @property

@@ -1,11 +1,13 @@
 """Scalar function registry with TiDB-flavored semantics.
 
-Counterpart of ``tiflash_tpu/expr/functions.py``: every scalar function
-that needs no string dictionary LUT, in eager torch.  Ported here:
+Counterpart of ``tiflash_tpu/expr/functions.py``, in eager torch:
 
 - ``cast_column`` for every non-string source and target: decimal,
   float, integer (BIGINT UNSIGNED included), wide decimals, DATE,
-  DATETIME and DURATION (MySQL's numeric temporal forms);
+  DATETIME and DURATION (MySQL's numeric temporal forms); from a string
+  through a LUT over its dictionary (``_cast_string_lut``, MySQL's
+  numeric-prefix and lax datetime parses); out of JSON by the unquoted
+  text;
 - arithmetic ``plus``/``minus``/``multiply``/``divide``/``int_div``/
   ``modulo``, ``negate``, ``abs``: decimals in int64 mantissas or
   multi-limb wides (``core/wide.py``), integer DIV/MOD on uint64
@@ -18,7 +20,16 @@ that needs no string dictionary LUT, in eager torch.  Ported here:
 - date parts and date/datetime functions (``date_add_*``, ``datediff``,
   ``week``/``yearweek``, ``from_days``, ``period_*``, ``unix_timestamp``,
   ``from_unixtime``, ``interval``, ``cast_fsp_round`` ...);
-- ``propagate_stats``, the reference's interval arithmetic.
+- ``propagate_stats``, the reference's interval arithmetic;
+- the string functions of the registry (``upper`` ... ``json_valid``):
+  each is a host table over the argument's dictionary (numbers get their
+  MySQL text first), copied to the column's device and gathered by code
+  (``_map_string_to_string`` and its siblings); an ``EvalError`` entry
+  of a table becomes a per-row error mask (``runtime/errors.py``);
+- the TIME functions of ``expr/duration.py``.
+
+The string functions named only in the expression compiler (``concat``,
+``regexp_*``, ``json_*`` ...) live in ``expr/compile.py``.
 
 What is not a port of the reference's code but of its semantics:
 
@@ -34,17 +45,21 @@ What is not a port of the reference's code but of its semantics:
   float remainder is inexact; ``torch.fmod`` is exact C fmod.  Denormal
   results differ: the reference flushes them to zero.
 
-The string functions, string casts and the TIME functions of
-``expr/duration.py`` come with the string slice of the port; the
-``vec_*`` functions with ``ops/vector.py`` and the grouping functions
-with the Expand node (``DEFERRED``).
+The ``vec_*`` functions come with ``ops/vector.py`` and the grouping
+functions with the Expand node (``DEFERRED``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import hashlib
+import json
+import re
+import zlib
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..core import wide as W
@@ -53,24 +68,22 @@ from ..core.dtypes import (
     BOOL,
     DURATION_MAX_US,
     FLOAT64,
+    STRING,
     ZERO_DATE_DAYS,
     ZERO_DT_BASE_US,
+    CivilDate,
+    CivilDateTime,
     DataType,
     Decimal,
     TypeKind,
+    ZeroDate,
+    ZeroDateTime,
+    civil_to_days,
     common_numeric_type,
 )
 
 DIV_PRECISION_INCREMENT = 4  # TiDB div_precision_increment default
 
-_STRING_SLICE = "comes with the string slice of the port"
-_STRING_NAMES = (
-    "upper", "lower", "ucase", "lcase", "reverse", "ltrim", "rtrim", "trim",
-    "length", "octet_length", "char_length", "character_length", "ascii",
-    "bit_length", "crc32", "md5", "sha1", "sha", "hex", "ord", "month_name",
-    "monthname", "day_name", "dayname", "json_valid")
-_DURATION_NAMES = ("maketime", "sec_to_time", "timediff", "addtime",
-                   "subtime", "time", "to_seconds", "any_value", "time_format")
 _VECTOR_NAMES = ("vec_l2_distance", "vec_l1_distance",
                  "vec_negative_inner_product", "vec_cosine_distance",
                  "vec_l2_norm", "vec_dims")
@@ -78,8 +91,6 @@ _GROUPING_NAMES = ("grouping", "grouping_bit_and", "grouping_cmp")
 
 # registered by the reference, not yet by the port: name -> where it comes
 DEFERRED: Dict[str, str] = {
-    **{n: _STRING_SLICE for n in _STRING_NAMES},
-    **{n: _STRING_SLICE + " (expr/duration.py)" for n in _DURATION_NAMES},
     **{n: "comes with ops/vector.py and the Vector type" for n in _VECTOR_NAMES},
     **{n: "comes with ops/expand.py and the Expand node" for n in _GROUPING_NAMES},
 }
@@ -259,16 +270,34 @@ def _round_half_away(x: torch.Tensor) -> torch.Tensor:
 
 
 def cast_column(col: Column, target: DataType) -> Column:
-    """Numeric/temporal cast (the non-string part of the reference's
-    ``cast_column``, MySQL ``CAST`` semantics)."""
+    """Numeric/temporal cast, MySQL ``CAST`` semantics; a string source
+    parses through a LUT over its dictionary (casts to strings are the
+    expression compiler's ``_cast_to_string_lut``)."""
     src = col.dtype
     if (src.kind == target.kind and src.scale == target.scale
             and (not src.is_decimal
                  or src.is_wide_decimal == target.is_wide_decimal)):
         return Column(col.data, col.validity, target, col.dictionary)
     data = col.data
-    if src.is_string or target.is_string:
-        raise NotImplementedError(f"cast {src} -> {target} {_STRING_SLICE}")
+    if src.is_string and src.mysql_json and not target.is_string:
+        # out of JSON: a JSON string element converts by its unquoted
+        # text, any other document by its own text
+        def unquote(s: str) -> str:
+            if s.startswith('"') and s.endswith('"'):
+                try:
+                    v = json.loads(s)
+                    if isinstance(v, str):
+                        return v
+                except Exception:
+                    pass
+            return s
+
+        col = Column(col.data, col.validity,
+                     dataclasses.replace(src, mysql_json=False),
+                     tuple(unquote(s) for s in (col.dictionary or ())))
+        src = col.dtype
+    if src.is_string and not target.is_string:
+        return _cast_string_lut(col, target)
     if (target.is_decimal and (target.is_wide_decimal or data.ndim == 2
                                or src.kind is TypeKind.UINT64)) \
             or (src.is_decimal and data.ndim == 2):
@@ -546,8 +575,6 @@ def parse_mysql_time(s: str):
     """'[-][D ]HH:MM:SS[.f]', 'HH:MM', 'SS' or numeric 'HHMMSS' -> signed
     microseconds clamped to the TIME range, or None when unparseable (a
     literal's host parse, MySQL's TIME grammar)."""
-    import re
-
     s = s.strip()
     m = re.match(
         r"^([+-]?)(?:(\d+)\s+)?(\d+)(?::(\d{1,2})(?::(\d{1,2}))?)?"
@@ -571,6 +598,348 @@ def parse_mysql_time(s: str):
     frac = int((m.group(6) or "0").ljust(6, "0"))
     us = sign * (((h * 60 + mm) * 60 + ss) * 1_000_000 + frac)
     return max(-DURATION_MAX_US, min(DURATION_MAX_US, us))
+
+
+_PUNCT = set("!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~")
+
+# zone designator suffix: Z, +HH, +HHMM or +HH:MM
+_TZ_SUFFIX_RE = re.compile(r"(Z|[+-]\d{2}(?::\d{2}|\d{2})?)$")
+
+
+def _split_datetime_fields(body: str):
+    """Digit runs separated by punctuation; a space or 'T' is legal only
+    after the third run (the date/time gap), any separator after the
+    fifth.  None on an illegal character."""
+    runs = []
+    i = 0
+    n = len(body)
+    while i < n:
+        j = i
+        while j < n and body[j].isdigit():
+            j += 1
+        if j == i:
+            return None
+        runs.append(body[i:j])
+        k = j
+        while k < n and not body[k].isdigit():
+            c = body[k]
+            ok = (c in _PUNCT
+                  or (len(runs) == 3 and (c == "T" or c.isspace()))
+                  or len(runs) > 5)
+            if not ok:
+                return None
+            k += 1
+        if k < n and k == j and j < n:
+            return None
+        i = k
+    return runs
+
+
+# one compact digit run: MySQL's numeric datetime widths (YYYYMMDD[HHMMSS]
+# and the two-digit-year forms; the last field may be one digit)
+_COMPACT_LAYOUTS = {14: (4, 2, 2, 2, 2, 2), 12: (2, 2, 2, 2, 2, 2),
+                    11: (2, 2, 2, 2, 2, 1), 10: (2, 2, 2, 2, 2),
+                    9: (2, 2, 2, 2, 1), 8: (4, 2, 2), 7: (2, 2, 2, 1),
+                    6: (2, 2, 2), 5: (2, 2, 1)}
+
+
+def mysql_str_to_datetime(s: str, fields_only: bool = False):
+    """String -> datetime.datetime under MySQL's lax datetime grammar:
+
+        text     :=  fields [ '.' digits ] [ zone ]
+        zone     :=  'Z' | ('+'|'-') HH [ ':' MM | MM ]
+        fields   :=  digit runs split by punctuation (space/'T' only in
+                     the date/time gap), or one compact run laid out by
+                     its length (two-digit years < 70 are 20xx)
+
+    A trailing '.digits' or bare '+HH' that would be a fraction or a zone
+    is taken as the next field while the text lacks a full date and time
+    ('2020.01.01' parses its '.01' as the day).  A '.xxx' tail of a
+    compact DATE is a compact TIME; of a 9/10-digit compact, the seconds.
+    Zones apply only to full datetimes and shift into UTC.  Returns None
+    where MySQL yields NULL; ``fields_only`` returns the raw civil fields
+    (month and day may be 0)."""
+    s = s.strip()
+    if not s:
+        return None
+
+    # zone suffix
+    tz_sign = tz_hour = tz_minute = ""
+    tz_sep = False
+    has_tz = False
+    body = s
+    m = _TZ_SUFFIX_RE.search(s)
+    if m and m.start() > 0:
+        g = m.group(1)
+        has_tz = True
+        if g != "Z":
+            tz_sign = g[0]
+            tz_hour = g[1:3]
+            rest = g[3:]
+            tz_sep = rest.startswith(":")
+            tz_minute = rest.lstrip(":")
+        e = m.start()
+        while e > 0 and s[e - 1] in _PUNCT:
+            e -= 1
+        body = s[:e]
+
+    # trailing fraction
+    frac_str = ""
+    dot = max((i for i in range(len(body) - 1, -1, -1)
+               if body[i] in _PUNCT and body[i] not in "+-"),
+              default=-1)
+    if dot > 0 and body[dot] == ".":
+        tail = body[dot + 1:]
+        if not tail.isdigit() and tail:
+            return None  # garbage after the fraction digits
+        frac_str = tail
+        fi = dot
+        while fi > 0 and body[fi - 1] in _PUNCT:
+            fi -= 1
+        body = body[:fi]
+
+    # field runs
+    body = body.strip()
+    if not body or not body[0].isdigit():
+        return None
+    runs = _split_datetime_fields(body)
+    if runs is None:
+        return None
+
+    # the fraction or a bare zone become fields of an incomplete text
+    complete = len(runs) > 5 or (len(runs) == 1 and len(runs[0]) > 4)
+    if frac_str and not complete:
+        runs.append(frac_str)
+        frac_str = ""
+    if has_tz and tz_sign and not complete \
+            and (not tz_minute or tz_sep):
+        runs.append(tz_hour)
+        if tz_minute:
+            runs.append(tz_minute)
+        has_tz = False
+
+    def adjust_year(y):
+        if 0 <= y <= 69:
+            return 2000 + y
+        if 70 <= y <= 99:
+            return 1900 + y
+        return y
+
+    year = month = day = hour = minute = second = 0
+    hhmmss = False
+    n = len(runs)
+    if n == 1:
+        d0 = runs[0]
+        ld = len(d0)
+        widths = _COMPACT_LAYOUTS.get(ld)
+        if widths is None:
+            return None
+        vals, p = [], 0
+        for w in widths:
+            vals.append(int(d0[p:p + w]))
+            p += w
+        vals += [0] * (6 - len(vals))
+        year, month, day, hour, minute, second = vals
+        if ld not in (14, 8):
+            year = adjust_year(year)
+        if ld in (14, 12, 11):
+            hhmmss = True
+        if ld in (5, 6, 8) and frac_str:
+            # '.xxx' after a compact DATE is a compact TIME
+            t = frac_str
+            if len(t) <= 2:
+                hour = int(t)
+            elif len(t) <= 4:
+                hour, minute = int(t[:2]), int(t[2:4])
+            else:
+                hour, minute, second = (int(t[:2]), int(t[2:4]),
+                                        int(t[4:6]))
+            frac_str = ""
+        if ld in (9, 10) and frac_str:
+            # '.xx' after [YY]YYMMDDHHMM supplies the seconds
+            second = int(frac_str[:2]) if frac_str[:2].isdigit() else 0
+            frac_str = ""
+    elif n == 2 or n == 0:
+        return None
+    else:
+        try:
+            fields = [int(x) for x in runs[:6]]
+        except ValueError:
+            return None
+        fields += [0] * (6 - len(fields))
+        year, month, day, hour, minute, second = fields
+        if n >= 6:
+            hhmmss = True
+        if len(runs[0]) <= 2:
+            # all-zero fields keep year 0 ('0-0-0' is the zero date);
+            # anything else reads a two-digit year
+            if (year, month, day, hour, minute, second) != (0,) * 6 \
+                    or frac_str:
+                year = adjust_year(year)
+
+    # fraction to microseconds (fsp 6, round half up)
+    micro, bump = 0, False
+    if hhmmss and frac_str:
+        digits = frac_str[:7]
+        v = int(digits)
+        if len(digits) <= 6:
+            micro = v * 10 ** (6 - len(digits))
+        else:
+            v = (v + 5) // 10
+            if v >= 10 ** 6:
+                bump = True
+                micro = 0
+            else:
+                micro = v
+
+    # range checks and zero dates
+    if not (hour <= 23 and minute <= 59 and second <= 59):
+        return None
+    if fields_only:
+        if month > 12 or day > 31 or year > 9999:
+            return None
+        return (year, month, day, hour, minute, second, micro)
+    if year == 0 and month == 0 and day == 0:
+        # the zero date: a storable value, time of day kept
+        tod = ((hour * 3600 + minute * 60 + second) * 1_000_000 + micro)
+        return ZeroDateTime(tod + (1_000_000 if bump else 0))
+    if not (1 <= month <= 12 and 1 <= day <= 31 and year <= 9999):
+        return None
+    try:
+        res = datetime.datetime(year, month, day, hour, minute, second, micro)
+    except ValueError:
+        # year 0 with a real month and day is valid data outside
+        # python's datetime range
+        if year == 0 and day <= _days_in_month(year, month):
+            return CivilDateTime(year, month, day, hour, minute, second,
+                                 micro)
+        return None
+    if bump:
+        res += datetime.timedelta(seconds=1)
+
+    if has_tz:
+        if not hhmmss:
+            return None  # zones only qualify full datetimes
+        dh = int(tz_hour) if tz_hour else 0
+        dm = int(tz_minute) if tz_minute else 0
+        if dh > 14 or dm > 59 or (dh == 14 and dm != 0) \
+                or (tz_sign == "-" and dh == 0 and dm == 0):
+            return None  # MySQL's zone range: -14:00 .. +14:00
+        off = dh * 3600 + dm * 60
+        if tz_sign == "-":
+            off = -off
+        res -= datetime.timedelta(seconds=off)  # normalize to UTC
+    return res
+
+
+_WEEKDAY_NAMES = ["Sunday", "Monday", "Tuesday", "Wednesday", "Thursday",
+                  "Friday", "Saturday"]
+_MONTH_FULL_NAMES = ["January", "February", "March", "April", "May",
+                     "June", "July", "August", "September", "October",
+                     "November", "December"]
+
+
+def _days_in_month(y: int, mo: int) -> int:
+    leap = y % 4 == 0 and (y % 100 != 0 or (y % 400 == 0 and y != 0))
+    return [31, 29 if leap else 28, 31, 30, 31, 30,
+            31, 31, 30, 31, 30, 31][mo - 1]
+
+
+def dayname_of_string(s: str):
+    """DAYNAME over raw text: partial zero dates ('0000-01-00') have no
+    weekday unless month and day are real."""
+    f = mysql_str_to_datetime(s, fields_only=True)
+    if f is None:
+        return None
+    y, mo, d = f[:3]
+    if mo == 0 or d == 0 or d > _days_in_month(y, mo):
+        return None
+    return _WEEKDAY_NAMES[(civil_to_days(y, mo, d) + 4) % 7]
+
+
+def monthname_of_string(s: str):
+    f = mysql_str_to_datetime(s, fields_only=True)
+    if f is None or f[1] == 0:
+        return None
+    if f[2] > _days_in_month(f[0], f[1]):
+        return None
+    return _MONTH_FULL_NAMES[f[1] - 1]
+
+
+def _gather(table: np.ndarray, idx: torch.Tensor) -> torch.Tensor:
+    """A host table copied to ``idx``'s device, gathered by ``idx``
+    (already clipped into the table)."""
+    return torch.as_tensor(table, device=idx.device)[idx.long()]
+
+
+def _codes(col: Column, size: int) -> torch.Tensor:
+    """A string column's codes clipped into a table of ``size`` entries:
+    dead and NULL rows may carry any code."""
+    return col.data.clamp(0, max(size - 1, 0))
+
+
+def _cast_string_lut(col: Column, target: DataType) -> Column:
+    """CAST(string AS numeric/temporal) over the dictionary: a host parse
+    of each entry, one gather.  MySQL coercion: the longest numeric prefix
+    parses ('12abc' -> 12), a non-numeric string is 0, an invalid date is
+    NULL, a fraction rounds half away from zero into an integer."""
+    num_rx = re.compile(r"^\s*[+-]?(\d+(\.\d*)?|\.\d+)([eE][+-]?\d+)?")
+    d = col.dictionary or ()
+
+    def parse_num(s: str) -> float:
+        m = num_rx.match(s)
+        return float(m.group(0)) if m else 0.0
+
+    nulls = np.zeros(max(len(d), 1), dtype=bool)
+    if target.kind in (TypeKind.DATE, TypeKind.DATETIME):
+        vals = np.zeros(max(len(d), 1), dtype=np.int64)
+        epoch = datetime.datetime(1970, 1, 1)
+        for i, s in enumerate(d):
+            t = mysql_str_to_datetime(s)
+            if t is None:
+                nulls[i] = True
+            elif isinstance(t, ZeroDateTime):
+                vals[i] = (ZERO_DATE_DAYS if target.kind is TypeKind.DATE
+                           else ZERO_DT_BASE_US + t.tod_us)
+            elif isinstance(t, CivilDateTime):
+                vals[i] = (t.epoch_days if target.kind is TypeKind.DATE
+                           else t.epoch_us)
+            elif target.kind is TypeKind.DATE:
+                vals[i] = (t.date() - epoch.date()).days
+            else:
+                vals[i] = round((t - epoch).total_seconds() * 1_000_000)
+    elif target.kind is TypeKind.DURATION:
+        vals = np.zeros(max(len(d), 1), dtype=np.int64)
+        for i, s in enumerate(d):
+            us = parse_mysql_time(s)
+            if us is None:
+                nulls[i] = True
+            else:
+                vals[i] = us
+    else:
+        fvals = np.array([parse_num(s) for s in d] or [0.0], dtype=np.float64)
+        if target.is_decimal:
+            vals = np.round(fvals * 10 ** target.scale).astype(np.int64)
+        elif target.is_float:
+            vals = fvals
+        elif target.kind is TypeKind.BOOL:
+            vals = fvals != 0
+        else:  # round half away from zero (MySQL CAST('3.6') = 4)
+            vals = (np.sign(fvals) * np.floor(np.abs(fvals) + 0.5)).astype(
+                np.int64)
+    host = np.asarray(vals, dtype=target.physical)
+    idx = _codes(col, len(host))
+    if host.dtype == np.uint64:  # gathered as int64 bit patterns
+        data = _u64(_gather(host.view(np.int64), idx))
+    else:
+        data = _gather(host, idx)
+    validity = col.validity
+    nullable = target.nullable or col.dtype.nullable
+    if nulls.any():
+        ok = _gather(~nulls, _codes(col, len(nulls)))
+        validity = ok if validity is None else (validity & ok)
+        nullable = True
+    return Column(data, validity, target.with_nullable(nullable))
 
 
 def _round_wide_to_integral(m: torch.Tensor, scale: int, name: str,
@@ -955,8 +1324,11 @@ def _decimal_div_mod(op: str, a: Column, b: Column, out: DataType,
 def _arith_eval(op: str):
     def evaluate(cols: Sequence[Column], out: DataType) -> Column:
         a, b = cols
-        if a.dtype.is_string or b.dtype.is_string:
-            raise NotImplementedError(f"string operands of {op} {_STRING_SLICE}")
+        # string operands: DOUBLE arithmetic on the numeric-prefix parse
+        if a.dtype.is_string:
+            a = cast_column(a, DataType(TypeKind.FLOAT64, True))
+        if b.dtype.is_string:
+            b = cast_column(b, DataType(TypeKind.FLOAT64, True))
         validity = _and_validity([a, b])
         wide_operand = ((a.dtype.is_wide_decimal or b.dtype.is_wide_decimal)
                         and out.is_decimal)
@@ -1125,19 +1497,42 @@ _CMP_FNS = {
 }
 
 
+def _remap_to_merged_dict(a: Column, b: Column):
+    """Two string columns' codes in one merged sorted dictionary, so code
+    comparisons are exact across dictionaries (host LUTs, one gather
+    each)."""
+    da_ = a.dictionary or ()
+    db_ = b.dictionary or ()
+    if da_ == db_:
+        return a.data, b.data
+    rank = {s: i for i, s in enumerate(sorted(set(da_) | set(db_)))}
+
+    def remap(col, src):
+        table = np.array([rank[s] for s in src] or [0], dtype=np.int32)
+        return _gather(table, _codes(col, len(src)))
+
+    return remap(a, da_), remap(b, db_)
+
+
 def _cmp_eval(op: str):
     def evaluate(cols: Sequence[Column], out: DataType) -> Column:
         a, b = cols
         validity = _and_validity(cols)
         if a.dtype.is_string and b.dtype.is_string:
             # literals were encoded into the column's code space by the
-            # compile layer; two columns compare only in one dictionary
-            if (a.dictionary or ()) != (b.dictionary or ()):
-                raise NotImplementedError(
-                    f"string compare across dictionaries {_STRING_SLICE}")
-            da, db = a.data, b.data
+            # compile layer; two columns compare in a merged dictionary
+            da, db = _remap_to_merged_dict(a, b)
         elif a.dtype.is_string or b.dtype.is_string:
-            raise NotImplementedError(f"mixed string compare {_STRING_SLICE}")
+            # a string against a number or a temporal: MySQL casts the
+            # string side, to DOUBLE or to the temporal type
+            s, o = (a, b) if a.dtype.is_string else (b, a)
+            if o.dtype.kind in (TypeKind.DATE, TypeKind.DATETIME,
+                                TypeKind.DURATION):
+                sc = cast_column(s, o.dtype.with_nullable(True))
+            else:
+                sc = cast_column(s, FLOAT64.with_nullable(s.dtype.nullable))
+            pair = [sc, b] if a.dtype.is_string else [a, sc]
+            return evaluate(pair, out)
         elif a.dtype.is_wide_decimal or b.dtype.is_wide_decimal:
             # limb-wise: lower limbs are in [0, 10^18), so (hi, ..., lo)
             # order is lexicographic
@@ -1710,8 +2105,8 @@ def _register_round_family(name: str):
 
         def evaluate(cols, out):
             a = cols[0]
-            if a.dtype.is_string:
-                raise NotImplementedError(f"{name} of a string {_STRING_SLICE}")
+            if a.dtype.is_string:  # MySQL rounds a string as a DOUBLE
+                a = cast_column(a, DataType(TypeKind.FLOAT64, True))
             d_col = cols[1] if len(cols) > 1 else None
             validity = _and_validity([a] + list(cols[1:]))
             if a.dtype.is_decimal:
@@ -2441,6 +2836,223 @@ for _u, _k in (("hours", 3_600_000_000), ("minutes", 60_000_000),
 
 
 # ---------------------------------------------------------------------------
+# string functions: host tables over the dictionary, one gather on the
+# column's device
+# ---------------------------------------------------------------------------
+
+def _lut_validity(col: Column, nulls: np.ndarray):
+    """AND a per-entry NULL table into the column's validity.  Returns
+    (validity or None, result nullable)."""
+    if not nulls.any():
+        return col.validity, col.dtype.nullable
+    not_null = _gather(~nulls, _codes(col, len(nulls)))
+    v = not_null if col.validity is None else (col.validity & not_null)
+    return v, True
+
+
+def _map_string_to_string(col: Column, fn, null_result=None,
+                          errors=None) -> Column:
+    """Host LUT over the dictionary; ``fn`` returns a string, None (SQL
+    NULL) or an ``EvalError``.  ``null_result`` is the value SQL-NULL
+    input rows get instead of NULL.  Each distinct error message becomes
+    a per-row mask appended to ``errors`` (an evaluator's
+    ``runtime_errors``) as (mask, message); without a sink errors are
+    NULL.  The output dictionary is Python's sorted set of the results."""
+    from ..runtime.errors import EvalError
+
+    d = col.dictionary or ()
+    mapped = [fn(s) for s in d]
+    if any(isinstance(m, EvalError) for m in mapped):
+        if errors is not None:
+            by_msg: dict = {}
+            for i, m in enumerate(mapped):
+                if isinstance(m, EvalError):
+                    by_msg.setdefault(m.message, []).append(i)
+            idx = _codes(col, len(mapped))
+            for msg, idxs in by_msg.items():
+                tbl = np.zeros(max(len(mapped), 1), dtype=bool)
+                tbl[idxs] = True
+                mask = _gather(tbl, idx)
+                if col.validity is not None:
+                    mask = mask & col.validity
+                errors.append((mask, msg))
+        mapped = [None if isinstance(m, EvalError) else m for m in mapped]
+    nulls = np.array([m is None for m in mapped] or [False])
+    mapped = ["" if m is None else m for m in mapped]
+    pool = set(mapped)
+    if null_result is not None:
+        pool.add(null_result)
+    new_dict = tuple(sorted(pool)) or ("",)
+    rank = {s: i for i, s in enumerate(new_dict)}
+    table = np.array([rank[m] for m in mapped] or [0], dtype=np.int32)
+    data = _gather(table, _codes(col, len(table)))
+    validity, nullable = _lut_validity(col, nulls)
+    if null_result is not None and col.validity is not None:
+        data = torch.where(col.validity, data,
+                           torch.full_like(data, rank[null_result]))
+        bad = _gather(nulls, _codes(col, len(nulls)))
+        validity = col.validity & ~bad | ~col.validity
+        nullable = True
+    return Column(data, validity, STRING.with_nullable(nullable), new_dict)
+
+
+def _map_string_to_int(col: Column, fn,
+                       kind: TypeKind = TypeKind.INT64) -> Column:
+    d = col.dictionary or ()
+    mapped = [fn(s) for s in d]
+    nulls = np.array([m is None for m in mapped] or [False])
+    table = np.array([0 if m is None else int(m) for m in mapped] or [0],
+                     dtype=np.int64)
+    data = _gather(table, _codes(col, len(table)))
+    validity, nullable = _lut_validity(col, nulls)
+    if kind is TypeKind.BOOL:
+        data = data.to(torch.bool)
+    return Column(data, validity, DataType(kind, nullable))
+
+
+def _register_string_unary(name: str, fn, to_int: bool = False):
+    def factory():
+        def infer(ts):
+            if to_int:
+                return DataType(TypeKind.INT64, ts[0].nullable)
+            return STRING.with_nullable(ts[0].nullable)
+
+        def evaluate(cols, out):
+            (a,) = cols
+            if not a.dtype.is_string:
+                # MySQL coerces: LENGTH(123) = 3, ASCII(123) = 49
+                a = _coerce_string_arg(a)
+            if to_int:
+                return _map_string_to_int(a, fn)
+            return _map_string_to_string(a, fn)
+
+        return infer, evaluate
+
+    register(name)(factory)
+
+
+def _coerce_string_arg(a: Column) -> Column:
+    """Implicit numeric/temporal -> string coercion for a string function:
+    the engine's MySQL text over the column's host-knowable domain, on
+    the column's device."""
+    from .compile import ExprEvaluator
+
+    return ExprEvaluator.bare(a.data.shape[0], a.data.device) \
+        ._cast_to_string_lut(a, STRING)
+
+
+def _hash_hex(algo: str):
+    return lambda s: hashlib.new(algo, s.encode()).hexdigest()
+
+
+_register_string_unary("upper", str.upper)
+_register_string_unary("lower", str.lower)
+_register_string_unary("reverse", lambda s: s[::-1])
+_register_string_unary("ltrim", str.lstrip)
+_register_string_unary("rtrim", str.rstrip)
+_register_string_unary("trim", str.strip)
+# LENGTH counts UTF-8 bytes, CHAR_LENGTH characters
+_register_string_unary("length", lambda s: len(s.encode("utf-8")), to_int=True)
+_register_string_unary("char_length", len, to_int=True)
+_register_string_unary("ascii", lambda s: ord(s[0]) if s else 0, to_int=True)
+_register_string_unary("bit_length", lambda s: 8 * len(s.encode()), to_int=True)
+_register_string_unary("crc32", lambda s: zlib.crc32(s.encode()), to_int=True)
+_register_string_unary("md5", _hash_hex("md5"))
+_register_string_unary("sha1", _hash_hex("sha1"))
+_register_string_unary("hex", lambda s: s.encode().hex().upper())
+# MySQL ORD: the leading character's UTF-8 bytes, big-endian
+_register_string_unary(
+    "ord", lambda s: int.from_bytes(s[0].encode(), "big") if s else 0,
+    to_int=True)
+
+
+def _map_string_to_date(col: Column, fn) -> Column:
+    """Host LUT dictionary -> epoch-day DATE column; ``fn`` returns a
+    ``datetime.date``, a zero or civil date, or None (SQL NULL)."""
+    epoch = datetime.date(1970, 1, 1)
+    mapped = [fn(s) for s in (col.dictionary or ())]
+    nulls = np.array([m is None for m in mapped] or [False])
+
+    def days(m):
+        if m is None:
+            return 0
+        if isinstance(m, datetime.date):
+            return (m - epoch).days
+        if isinstance(m, ZeroDate):
+            return ZERO_DATE_DAYS
+        if isinstance(m, CivilDate):  # partial zero dates included
+            return m.epoch_days
+        raise TypeError(f"unexpected date value {m!r}")
+
+    table = np.array([days(m) for m in mapped] or [0], dtype=np.int32)
+    data = _gather(table, _codes(col, len(table)))
+    validity, nullable = _lut_validity(col, nulls)
+    return Column(data, validity, DataType(TypeKind.DATE, nullable))
+
+
+def _map_string_to_datetime(col: Column, fn) -> Column:
+    """Host LUT dictionary -> epoch-microsecond DATETIME column; ``fn``
+    returns a ``datetime.datetime`` or None."""
+    epoch = datetime.datetime(1970, 1, 1)
+    mapped = [fn(s) for s in (col.dictionary or ())]
+    nulls = np.array([m is None for m in mapped] or [False])
+    table = np.array(
+        [0 if m is None else round((m - epoch).total_seconds() * 1_000_000)
+         for m in mapped] or [0], dtype=np.int64)
+    data = _gather(table, _codes(col, len(table)))
+    validity, nullable = _lut_validity(col, nulls)
+    return Column(data, validity, DataType(TypeKind.DATETIME, nullable))
+
+
+def _register_part_name(name: str, part_fn_name: str, names_list):
+    """MONTHNAME/DAYNAME of a date: the part number into a constant sorted
+    dictionary of names; part 0 (the zero date) has no name and is NULL."""
+    sorted_dict = tuple(sorted(names_list))
+    rank = np.array([sorted_dict.index(n) for n in names_list], dtype=np.int32)
+
+    def factory():
+        def infer(ts):
+            return STRING.with_nullable(ts[0].nullable)
+
+        def evaluate(cols, out):
+            part = get_function(part_fn_name).evaluate(
+                cols, DataType(TypeKind.INT64, cols[0].dtype.nullable))
+            idx = (part.data - 1).clamp(0, len(names_list) - 1)
+            v = part.data >= 1
+            if part.validity is not None:
+                v = v & part.validity
+            return Column(_gather(rank, idx), v, out, sorted_dict)
+
+        return infer, evaluate
+
+    register(name)(factory)
+
+
+for _n in ("month_name", "monthname"):
+    _register_part_name(_n, "month", _MONTH_FULL_NAMES)
+# MySQL dayofweek: 1 = Sunday .. 7 = Saturday
+for _n in ("day_name", "dayname"):
+    _register_part_name(_n, "dayofweek", _WEEKDAY_NAMES)
+
+
+@register("json_valid")
+def _json_valid():
+    """For a non-string argument: only strings hold JSON text, so the
+    result is 0 and never NULL (string columns take the dictionary LUT in
+    ``expr/compile.py``)."""
+
+    def infer(ts):
+        return DataType(TypeKind.BOOL, False)
+
+    def evaluate(cols, out):
+        (a,) = cols
+        return Column(torch.zeros(a.data.shape[:1], dtype=torch.bool,
+                                  device=a.data.device), None, out)
+
+    return infer, evaluate
+
+
+# ---------------------------------------------------------------------------
 # TiDB-name aliases (of registered targets only)
 # ---------------------------------------------------------------------------
 
@@ -2487,6 +3099,8 @@ for _alias, _target in _ALIASES.items():
     if _alias not in REGISTRY and _target in REGISTRY:
         REGISTRY[_alias] = REGISTRY[_target]
 
+
+from . import duration as _duration  # noqa: E402,F401  (registers TIME fns)
 
 __all__ = ["REGISTRY", "DEFERRED", "get_function", "cast_column", "Function",
            "DIV_PRECISION_INCREMENT", "propagate_stats", "round_decimal_frac",

@@ -14,6 +14,15 @@ so overflow keys such as ``Join_5`` match.
 
 The reference chooses the fused path by an environment knob; here it is
 the explicit ``fuse_stream_agg`` argument of ``compile_fragment``.
+
+The runtime error channel: after a Selection, an AddColumns or a
+Projection evaluates its expressions, the evaluator's per-row error masks
+(string and JSON tables with ``EvalError`` entries) are folded into one
+flag per message over the child block's live rows
+(``Diagnostics.errors``); a filtered-out row never errors.
+``compile_fragment`` returns them beside the overflow flags under
+``RTERR_PREFIX``, and the runner raises them once a run is
+capacity-clean (``runtime/errors.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from ..expr.nodes import ColumnRef
 from ..ops.aggregate import hash_aggregate
 from ..ops.join import cross_join, hash_join_with_tail
 from ..ops.sort import limit_block, sort_block, top_n
+from ..runtime.errors import RTERR_PREFIX
 from . import nodes as P
 
 
@@ -39,6 +49,8 @@ class Diagnostics:
 
     overflows: Dict[str, torch.Tensor]
     rows: Dict[str, torch.Tensor]
+    # message -> 0-d bool flag: some live row hit a per-row EvalError
+    errors: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
 def execute_plan(plan: P.PlanNode, tables: Dict[str, Block],
@@ -48,6 +60,18 @@ def execute_plan(plan: P.PlanNode, tables: Dict[str, Block],
     if diag is None:
         diag = Diagnostics({}, {})
     return _exec_node(plan, tables, diag, [0], fuse_stream_agg)
+
+
+def _drain_eval_errors(ev: ExprEvaluator, block: Block, diag: Diagnostics) -> None:
+    """Fold an evaluator's per-row error masks into one flag per message,
+    masked to the block's live rows."""
+    for mask, msg in ev.runtime_errors:
+        if block.sel is not None:
+            mask = mask & block.sel
+        flag = torch.any(mask)
+        prev = diag.errors.get(msg)
+        diag.errors[msg] = flag if prev is None else (prev | flag)
+    ev.runtime_errors.clear()
 
 
 def _exec_node(node: P.PlanNode, tables: Dict[str, Block], diag: Diagnostics,
@@ -67,7 +91,9 @@ def _exec_node(node: P.PlanNode, tables: Dict[str, Block], diag: Diagnostics,
 
     if isinstance(node, P.Selection):
         child = child_of(node.child)
-        cond = ExprEvaluator(child).evaluate(node.cond)
+        ev = ExprEvaluator(child)
+        cond = ev.evaluate(node.cond)
+        _drain_eval_errors(ev, child, diag)
         mask = cond.data.to(torch.bool)
         if cond.validity is not None:
             mask = mask & cond.validity  # NULL condition == not selected
@@ -81,12 +107,14 @@ def _exec_node(node: P.PlanNode, tables: Dict[str, Block], diag: Diagnostics,
         out = child
         for name, e in node.exprs.items():
             out = out.with_column(name, ev.evaluate(e))
+        _drain_eval_errors(ev, child, diag)
         return out
 
     if isinstance(node, P.Projection):
         child = child_of(node.child)
         ev = ExprEvaluator(child)
         cols = {name: ev.evaluate(e) for name, e in node.exprs.items()}
+        _drain_eval_errors(ev, child, diag)
         out = Block.from_dict(cols, sel=child.sel)
         # row order is unchanged: clustering survives through bare-column
         # passthroughs (renames included)
@@ -191,16 +219,27 @@ def compile_fragment(
     plan: P.PlanNode,
     fuse_stream_agg: bool = True,
 ) -> Callable[[Dict[str, Block]], Tuple[Block, Dict[str, torch.Tensor]]]:
-    """Returns fn(tables) -> (result block, overflow flags).
+    """Returns fn(tables) -> (result block, flags): the overflow flags,
+    and the runtime-error flags under ``RTERR_PREFIX``
+    (``runtime/errors.py:split_runtime_errors`` parts them).
     ``fuse_stream_agg`` lets an Aggregation over a scan chain take the
     fused stream-agg path."""
 
     def run(tables: Dict[str, Block]):
         diag = Diagnostics({}, {})
         out = execute_plan(plan, tables, diag, fuse_stream_agg)
-        return out, dict(diag.overflows)
+        return out, flag_dict(diag)
 
     return run
 
 
-__all__ = ["execute_plan", "compile_fragment", "Diagnostics"]
+def flag_dict(diag: Diagnostics) -> Dict[str, torch.Tensor]:
+    """The overflow flags and, under ``RTERR_PREFIX``, the runtime-error
+    flags of one run."""
+    flags = dict(diag.overflows)
+    for msg, v in diag.errors.items():
+        flags[RTERR_PREFIX + msg] = v
+    return flags
+
+
+__all__ = ["execute_plan", "compile_fragment", "Diagnostics", "flag_dict"]

@@ -5,10 +5,10 @@ integers (append only); ``EngineError`` carries one.  ``EvalError`` is
 the sentinel a host LUT function returns for a per-row runtime error;
 the fragment compiler reduces such rows to scalar flags under
 ``RTERR_PREFIX`` beside the capacity-overflow flags, and the host raises
-after execution.  The producers of per-row errors are string and JSON
-functions, so the drain that feeds this channel comes with the string
-slice of the port; ``classify`` and ``error_payload`` come with the
-runtime modules they read (cancel, failpoint, memory, metrics).
+after execution.  The producers of per-row errors are the string and
+JSON tables of ``expr/``; the drain is ``plan/compiler.py``'s and the
+raise ``runtime/executor.py``'s.  ``classify`` and ``error_payload`` come
+with the runtime modules they read (cancel, failpoint, memory, metrics).
 """
 
 from __future__ import annotations

@@ -12,6 +12,12 @@ the rewritten tree to 1.25x what it reported and runs again, up to
 CrossJoin's output capacity.  A Join whose unique-build promise was
 false also moves to the general join path.
 
+Every overflow flag and runtime-error flag of a run is read in one host
+read.  An error flag never causes a retry: a run with an overflow is
+retried (its rows are garbage), and only a capacity-clean run raises its
+runtime errors (``EngineError``, code ``RUNTIME_EVAL``), as the
+reference's runner does.
+
 Not ported: the mesh (distributed) path, auto-sizing, out-of-core
 fallbacks and the rest of the reference's ``Settings``.  They come with
 later slices.  The query clock (NOW(), CURDATE(), RAND() without a seed)
@@ -24,10 +30,13 @@ import dataclasses
 import time
 from typing import Dict, List, Tuple
 
+import torch
+
 from ..core.block import Block
 from ..expr.compile import query_clock, query_now_us
 from ..plan import nodes as P
-from ..plan.compiler import Diagnostics, execute_plan
+from ..plan.compiler import Diagnostics, execute_plan, flag_dict
+from .errors import raise_runtime_errors, split_runtime_errors
 
 MAX_CAPACITY_RETRIES = 4
 
@@ -75,6 +84,16 @@ def _grow(plan: P.PlanNode, flagged: Dict[str, int]) -> None:
                 node.unique_build = False
 
 
+def read_flags(flags: Dict[str, torch.Tensor]) -> Dict[str, int]:
+    """Each flag's largest value as a host int, all in one host read."""
+    if not flags:
+        return {}
+    maxes = [torch.as_tensor(v).max().to(torch.int64) for v in flags.values()]
+    dev = maxes[0].device
+    host = torch.stack([m.to(dev) for m in maxes]).tolist()
+    return dict(zip(flags, host))
+
+
 def run_query(
     plan: P.PlanNode,
     tables: Dict[str, Block],
@@ -105,9 +124,10 @@ def _run(plan, tables, fuse_stream_agg, plan_rewrites):
     for attempt in range(MAX_CAPACITY_RETRIES + 1):
         diag = Diagnostics({}, {})
         out = execute_plan(plan, tables, diag, fuse_stream_agg)
-        flagged = {k: int(v.max()) for k, v in diag.overflows.items()
-                   if int(v.max()) > 0}
+        overflows, errors = split_runtime_errors(read_flags(flag_dict(diag)))
+        flagged = {k: v for k, v in overflows.items() if v > 0}
         if not flagged:
+            raise_runtime_errors(errors)
             break
         summary.retries += 1
         summary.overflow_nodes.extend(flagged)

@@ -145,7 +145,9 @@ class Catalog:
 def _dtype_from_desc(desc: dict) -> DataType:
     return DataType(TypeKind[desc["kind"]], nullable=bool(desc["nullable"]),
                     precision=int(desc["precision"]), scale=int(desc["scale"]),
-                    tz_aware=bool(desc.get("tz_aware", False)))
+                    tz_aware=bool(desc.get("tz_aware", False)),
+                    mysql_json=bool(desc.get("mysql_json", False)),
+                    mysql_blob=int(desc.get("mysql_blob", 0)))
 
 
 def blocks_from_numpy(tables: Dict[str, dict], device) -> Dict[str, Block]:
@@ -155,7 +157,8 @@ def blocks_from_numpy(tables: Dict[str, dict], device) -> Dict[str, Block]:
     "clustered_by"}``; each column is ``{"data", "validity", "dtype",
     "dictionary", "stats", "domain", "ndv"}`` with ``dtype`` a dict of ``kind``
     (a ``TypeKind`` member name), ``precision``, ``scale``, ``nullable``
-    and optionally ``tz_aware``.  Stats and NDV are taken as given (they are invariants
+    and optionally ``tz_aware``, ``mysql_json`` and ``mysql_blob``.  Stats
+    and NDV are taken as given (they are invariants
     the producer proved); the int32 shadow follows the reference's rule.
     """
     out: Dict[str, Block] = {}

@@ -28,7 +28,9 @@ def _export_column(col) -> dict:
         "validity": _array(col.validity),
         "dtype": {"kind": dt.kind.name, "precision": int(dt.precision),
                   "scale": int(dt.scale), "nullable": bool(dt.nullable),
-                  "tz_aware": bool(getattr(dt, "tz_aware", False))},
+                  "tz_aware": bool(getattr(dt, "tz_aware", False)),
+                  "mysql_json": bool(getattr(dt, "mysql_json", False)),
+                  "mysql_blob": int(getattr(dt, "mysql_blob", 0))},
         "dictionary": (None if col.dictionary is None
                        else tuple(col.dictionary)),
         "stats": None if stats is None else (int(stats[0]), int(stats[1])),
