@@ -3,18 +3,26 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``tiflash_tpu_torch/csrc`` (one
-``nvcc`` per source, all at once) and holds each against its plain torch
-version on the card.  Then it drives three paths through
+``nvcc`` per source, all at once): the planes kernel ``stream_agg.cu``,
+``direct_agg.cu``, and the fused scan kernels that ``stream_tile.cu.in``
+generates per plan for the run's fused aggregations (Q1, Q6 and the fuse
+cases of ``tiflash_tpu_torch/testing/fuse_cases.py``, whose programs the
+CPU reference runs give).  Holds each against its plain torch version on
+the card.  Then it drives these paths through
 ``tiflash_tpu_torch.runtime.executor.run_query`` on ``cuda``, at SF1 with
 random data from seed 0:
 
-- TPC-H Q1 and Q6 over the lineitem table (5,999,438 rows), which run
-  the stream_agg kernel; then on the same table the spec-form Q1/Q6, the
-  function sweep, and the string phase (``string_phase``): the string
+- TPC-H Q1 and Q6 over the lineitem table (5,999,438 rows): one launch
+  of the generated kernel each, no planes kernel, no tile program
+  evaluated in torch on the card; Q6 with a second draw of its literals
+  reuses the built kernel; then on the same table the spec-form Q1/Q6,
+  the function sweep, and the string phase (``string_phase``): the string
   sweep of ``bench/strings.py`` against the CPU run with dictionaries as
   tuples, the ship-month report (a GROUP BY over two string expressions,
   553 slots on the direct_agg kernel) against the CPU run and numpy, and
-  the runtime error of CAST(l_shipmode AS JSON);
+  the runtime error of CAST(l_shipmode AS JSON); then Q1 at SF10 (about
+  60M rows, Q1's columns only), whose ``sum_charge`` takes the two-limb
+  recombination, against numpy alone;
 - TPC-H Q7 and Q7 over all nation pairs over the five-table catalog
   (nation, supplier, customer, orders, lineitem), which join and then
   aggregate by the sort method (Q7) or the direct_agg kernel (Q7-pairs);
@@ -32,18 +40,20 @@ random data from seed 0:
 Each kernel is held against its plain version (``torch.equal``) on edge
 cases, and timed at the query's own arguments beside one ``index_add_``
 of the same sums (the library yardstick) and its bound (the bytes it must
-move over 3.35 TB/s), the L2 flushed before each run.
+move over 3.35 TB/s), the L2 flushed before each run; the generated
+kernel also beside the unfused path (the tile program evaluated in torch
+on the card, then the planes kernel).
 ``tiflash_tpu_torch/bench/compare_trees.py`` times two checkouts' kernels
 and queries against each other; ``tiflash_tpu_torch/bench/kernel_variants.py``
 times the design alternatives of the kernels.
 
 Every result is checked bit-exact against the port's own CPU run (but
-the 100M-row top-N, whose CPU run would take most of the script's time)
-and an independent numpy computation (in the eight-table phase, one per
-new mechanism: Q2, Q9, Q13, Q14, Q16 and Q18-300).  Any failure exits
-non-zero.  The
-last line of standard output is the JSON device record; the line before
-it lists the kernels with their launch counts, errors and times.
+the 100M-row top-N and Q1 at SF10, whose CPU runs would take most of the
+script's time) and an independent numpy computation (in the eight-table
+phase, one per new mechanism: Q2, Q9, Q13, Q14, Q16 and Q18-300).  Any
+failure exits non-zero.  The last line of standard output is the JSON
+device record; the line before it lists the kernels with their launch
+counts, errors and times.
 
 Imports neither jax nor the JAX package.
 """
@@ -97,10 +107,18 @@ def _half_up_div(num: int, den: int) -> int:
     return q if num >= 0 else -q
 
 
-def numpy_q1(li: dict) -> dict:
-    """TPC-H Q1 over host arrays: int64 mantissas, group sums by masks."""
+def _pysum(x) -> int:
+    """The exact sum of an int64 array as a Python int (int64 partial sums
+    of 2^22 rows, each far from overflow)."""
     import numpy as np
 
+    return sum(int(np.sum(x[i:i + (1 << 22)], dtype=np.int64))
+               for i in range(0, len(x), 1 << 22))
+
+
+def numpy_q1(li: dict) -> dict:
+    """TPC-H Q1 over host arrays: int64 mantissas, group sums by masks,
+    totals as Python ints."""
     live = li["l_shipdate"] <= _days(Q1_CUTOFF)
     rf, ls = li["l_returnflag"], li["l_linestatus"]
     qty, ext = li["l_quantity"], li["l_extendedprice"]
@@ -116,13 +134,13 @@ def numpy_q1(li: dict) -> dict:
             n = int(g.sum())
             if not n:
                 continue
-            sq, se, sd = (int(np.sum(x[g], dtype=np.int64)) for x in (qty, ext, disc))
+            sq, se, sd = (_pysum(x[g]) for x in (qty, ext, disc))
             out["l_returnflag"].append(rfs)
             out["l_linestatus"].append(lss)
             out["sum_qty"].append(sq)
             out["sum_base_price"].append(se)
-            out["sum_disc_price"].append(int(np.sum(disc_price[g], dtype=np.int64)))
-            out["sum_charge"].append(int(np.sum(charge[g], dtype=np.int64)))
+            out["sum_disc_price"].append(_pysum(disc_price[g]))
+            out["sum_charge"].append(_pysum(charge[g]))
             # avg of a scale-2 decimal is scale 6: sum * 10^4 / n, half up
             out["avg_qty"].append(_half_up_div(sq * 10 ** 4, n))
             out["avg_price"].append(_half_up_div(se * 10 ** 4, n))
@@ -131,13 +149,14 @@ def numpy_q1(li: dict) -> dict:
     return out
 
 
-def numpy_q6(li: dict) -> dict:
+def numpy_q6(li: dict, dates=Q6_RANGE, disc=(5, 7), quantity=2400) -> dict:
+    """TPC-H Q6 over host arrays; ``disc`` and ``quantity`` as mantissas."""
     import numpy as np
 
     d = li["l_shipdate"]
-    m = ((d >= _days(Q6_RANGE[0])) & (d < _days(Q6_RANGE[1]))
-         & (li["l_discount"] >= 5) & (li["l_discount"] <= 7)
-         & (li["l_quantity"] < 2400))
+    m = ((d >= _days(dates[0])) & (d < _days(dates[1]))
+         & (li["l_discount"] >= disc[0]) & (li["l_discount"] <= disc[1])
+         & (li["l_quantity"] < quantity))
     rev = li["l_extendedprice"] * li["l_discount"]   # scale 4
     return {"revenue": [int(np.sum(rev[m], dtype=np.int64)) if m.any() else None]}
 
@@ -848,6 +867,8 @@ def capture_calls(module, name: str, run) -> list:
                 return a.clone()
             if isinstance(a, list) and all(isinstance(t, torch.Tensor) for t in a):
                 return [t.clone() for t in a]
+            if isinstance(a, dict) and all(isinstance(t, torch.Tensor) for t in a.values()):
+                return {k: t.clone() for k, t in a.items()}
             return a
 
         captured.append(tuple(copy(a) for a in args))
@@ -900,6 +921,204 @@ def stream_agg_yardsticks(SA, captured, flush) -> dict:
     return {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
             "bound_bytes": n_bytes, "rows": rows, "launches": len(captured),
             "all_dead_ms": dead_ms}
+
+
+TILE_CASE_ROWS = 1_000_003
+Q6_OTHER = {"date": "1995-01-01", "date_end": "1996-01-01", "disc_lo": 0.02,
+            "disc_hi": 0.04, "quantity": 25.0}   # a second qgen draw of Q6
+SF10 = 10
+Q1_COLUMNS = ["l_quantity", "l_extendedprice", "l_discount", "l_tax", "l_returnflag",
+              "l_linestatus", "l_shipdate"]
+_STORAGE_BYTES = {"i32": 4, "u8": 1, "i64": 8}
+
+
+def fused_source(SA, ST, call) -> tuple:
+    """("stream_tile", generated source) of a captured ``fused_group_sums``
+    call, for ``build.build_libraries(generated=...)``."""
+    _, program, _, n_limbs, _, pf, h, _ = call
+    return "stream_tile", ST.kernel_source(program, SA.field_table(pf, n_limbs), h)[0]
+
+
+def _sector_bytes(mask, size: int) -> int:
+    """The bytes of the 32-byte sectors (the device's access unit) of an
+    array of ``size``-byte rows that hold a row where ``mask`` is set."""
+    import torch
+
+    per = 32 // size
+    pad = torch.nn.functional.pad(mask, (0, -mask.shape[0] % per))
+    return 32 * int(pad.view(-1, per).any(1).sum())
+
+
+def tile_bound_bytes(TP, call) -> dict:
+    """The bytes the fused kernel must move at a captured call.
+
+    ``bound``: the fewest that any order of loads needs.  An array that a
+    term of the live mask reads is needed only in the sectors holding a
+    row that every term over the arrays loaded before it keeps (the first
+    one whole); the least over all orders of those arrays, by dynamic
+    programming over the sets loaded first.  The arrays no term reads
+    (keys, aggregate inputs) come last, in the sectors of the live rows.
+    Plus the int64 output.
+    ``design``: what this kernel's order reads: every live-mask and key
+    array whole, the arrays only the planes read in the sectors of the
+    live rows, and the output.  ``whole``: every array whole.
+    ``evaluate`` on the card finds the live rows (outside every timed
+    span)."""
+    import itertools
+
+    import torch
+
+    inputs, program, n_slots, _, n_rows, pf, _, dev = call
+    tile = TP.stage(program, inputs)
+    rows = torch.ones(n_rows, dtype=torch.bool, device=dev)
+    slots, _ = TP.evaluate(program, tile, rows)
+    live = slots < n_slots
+    terms = TP.conjuncts(program.live)
+    holds = TP.evaluate_nodes(terms, tile, program.params, rows)
+    reads = [frozenset(program.arrays_read([t])) for t in terms]
+    size = [_STORAGE_BYTES[a.storage] for a in program.arrays]
+    pred = sorted(frozenset().union(*reads))
+    kept = {}
+
+    def live_after(loaded: frozenset):
+        if loaded not in kept:
+            m = rows
+            for h, r in zip(holds, reads):
+                if r <= loaded:
+                    m = m & h
+            kept[loaded] = m
+        return kept[loaded]
+
+    least = {frozenset(): 0}
+    for k in range(1, len(pred) + 1):
+        for sub in map(frozenset, itertools.combinations(pred, k)):
+            least[sub] = min(least[sub - {a}] + _sector_bytes(live_after(sub - {a}), size[a])
+                             for a in sub)
+    rest = [k for k in program.arrays_read([program.key_slot, *program.planes])
+            if k not in pred]
+    out = 8 * n_slots * sum(len(f) for f in pf)
+    mask = program.mask_arrays()
+    agg = program.agg_arrays()
+    return {"bound": least[frozenset(pred)] + sum(_sector_bytes(live, size[k]) for k in rest)
+            + out,
+            "design": sum(_sector_bytes(rows, size[k]) for k in mask)
+            + sum(_sector_bytes(live, size[k]) for k in agg) + out,
+            "whole": sum(_sector_bytes(rows, size[k]) for k in mask + agg) + out}
+
+
+def fused_yardsticks(SA, ST, TP, call, flush) -> dict:
+    """At a query's captured ``fused_group_sums`` call: the generated
+    kernel held against its plain version (``torch.equal``), then timed
+    beside it (``evaluate`` then ``group_sums_plain``), the unfused path
+    (``evaluate`` on the card, then the planes kernel), one ``index_add_``
+    of the tile values' int64 fields into (S+1, F) (the library
+    yardstick), and the byte bound and the kernel design's bytes
+    (``tile_bound_bytes``).  Also the planes kernel's arguments at this
+    call (``planes_call``)."""
+    import torch
+
+    inputs, program, n_slots, n_limbs, _, pf, h, _ = call
+    fields = SA.field_table(pf, n_limbs)
+
+    def zeros():
+        return torch.zeros((n_slots, len(fields)), dtype=torch.int64, device="cuda")
+
+    err = fused_equals_plain(ST, call)
+    p_ms, k_ms = time_turns(lambda: ST.fused_group_sums_plain(*call),
+                            lambda: ST.fused_group_sums(*call), KERNEL_REPS, flush)
+
+    def unfused():
+        slots, planes = TP.evaluate(program, TP.stage(program, inputs))
+        SA.group_sums(slots, planes, fields, n_slots, zeros(), h)
+
+    un_ms = time_ms(unfused, KERNEL_REPS, flush)
+    slots, planes = TP.evaluate(program, TP.stage(program, inputs))
+    live = (slots >= 0) & (slots < n_slots)
+    idx = torch.where(live, slots, n_slots).long()
+    vals = torch.stack([(planes[pl].long() >> off) & ((1 << cap) - 1)
+                        for pl, off, cap, _ in sorted(fields, key=lambda r: r[3])], 1)
+    acc = torch.zeros((n_slots + 1, len(fields)), dtype=torch.int64, device="cuda")
+    lib_ms = time_ms(lambda: acc.index_add_(0, idx, vals), KERNEL_REPS, flush)
+    nb = tile_bound_bytes(TP, call)
+    bound_ms = nb["bound"] / HBM_BYTES_PER_S * 1e3
+    design_ms = nb["design"] / HBM_BYTES_PER_S * 1e3
+    return {"ms": k_ms, "plain_ms": p_ms, "unfused_ms": un_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_bytes": nb["bound"], "max_abs_err": err,
+            "design_bound_ms": design_ms, "design_bound_bytes": nb["design"],
+            "full_column_bound_ms": nb["whole"] / HBM_BYTES_PER_S * 1e3,
+            "share_of_bound": bound_ms / k_ms, "share_of_design_bound": design_ms / k_ms,
+            "live": int(live.sum()),
+            "rows": int(slots.shape[0]),
+            "planes_call": (slots, [p.contiguous() for p in planes], fields, n_slots,
+                            None, h)}
+
+
+def fused_line(name: str, y: dict, card: str) -> str:
+    return (f"{name} stream_tile: kernel == plain (exact), kernel {y['ms']:.4f} ms, unfused "
+            f"(evaluate + planes kernel) {y['unfused_ms']:.4f} ms, plain {y['plain_ms']:.4f} "
+            f"ms, index_add_ {y['library_ms']:.4f} ms, bound {y['bound_ms']:.4f} ms "
+            f"({y['bound_bytes']} B at 3.35 TB/s, the fewest sectors any load order reads), "
+            f"share of bound {y['share_of_bound']:.1%}; kernel design (mask and key columns "
+            f"whole) {y['design_bound_ms']:.4f} ms ({y['design_bound_bytes']} B), share "
+            f"{y['share_of_design_bound']:.1%}; every column whole "
+            f"{y['full_column_bound_ms']:.4f} ms; {y['live']} of {y['rows']} rows live; L2 "
+            f"flushed before each run [{card}]")
+
+
+def fused_equals_plain(ST, call) -> int:
+    """The generated kernel == its plain version (``torch.equal``) on a
+    captured call's own card inputs; returns the largest absolute
+    difference (0), raises on any."""
+    import torch
+
+    got = ST.fused_group_sums(*call)
+    want = ST.fused_group_sums_plain(*call)
+    torch.cuda.synchronize()
+    if got.device.type != "cuda" or want.device != got.device:
+        raise AssertionError(f"stream_tile outputs on {got.device} and {want.device}")
+    err = int((got - want).abs().max()) if got.numel() else 0
+    if not torch.equal(got, want):
+        raise AssertionError(f"stream_tile kernel != plain: max abs err {err}")
+    return err
+
+
+def check_stream_tile(SA, ST, cases) -> int:
+    """The generated kernel == its plain version (``torch.equal``) at each
+    case's own fused call on the card, and the case's card result == its
+    CPU run.  ``cases``: (name, plan, cpu tables, card tables).  Returns
+    the largest absolute difference seen (0)."""
+    import torch
+
+    from tiflash_tpu_torch.runtime.executor import run_query
+
+    max_err = 0
+    for name, plan, cpu_tables, gpu_tables in cases:
+        want_rows = block_result(run_query(plan, cpu_tables)[0])
+        out = []
+        l0 = ST.LAUNCHES
+        calls = capture_calls(ST, "fused_group_sums",
+                              lambda: out.append(run_query(plan, gpu_tables)[0]))
+        torch.cuda.synchronize()
+        if len(calls) != 1 or ST.LAUNCHES != l0 + 1:
+            raise AssertionError(f"{name}: {len(calls)} fused calls and "
+                                 f"{ST.LAUNCHES - l0} launches on the card")
+        if out[0].device.type != "cuda":
+            raise AssertionError(f"{name}: result on {out[0].device}")
+        if block_result(out[0]) != want_rows:
+            raise AssertionError(f"{name}: cuda result != cpu result")
+        c = calls[0]
+        try:
+            max_err = max(max_err, fused_equals_plain(ST, c))
+        except AssertionError as e:
+            raise AssertionError(f"{name}: {e}") from None
+        _, program, n_slots, n_limbs, n_rows, pf, h, _ = c
+        plan_ = ST.plan_tile_launch(n_slots, n_limbs, sum(map(len, pf)), h)
+        storages = sorted({a.storage for a in program.arrays})
+        print(f"stream_tile kernel == plain (exact): {name} rows={n_rows} S={n_slots} "
+              f"planes={n_limbs} fields={sum(map(len, pf))} arrays={len(program.arrays)} "
+              f"{'/'.join(storages)} params={len(program.params)} regime={plan_.regime} "
+              f"threads={plan_.threads}; result == cpu run")
+    return max_err
 
 
 def direct_agg_yardsticks(DA, captured, flush) -> dict:
@@ -994,24 +1213,28 @@ def cpu_run_with_spy(plan, tables):
 def card_run_checked(name: str, plan, tables, cpu_result, cpu_retries: int,
                      predicted) -> tuple:
     """One ``run_query`` on the card: it must launch the kernels the CPU
-    dispatch predicts, take the CPU run's retries and equal its result.
-    Returns (result, summary, direct_agg launches, stream_agg launches)."""
+    dispatch predicts (a fused run launches the generated stream_tile
+    kernel, never the planes kernel), take the CPU run's retries and equal
+    its result.  Returns (result, summary, direct_agg launches, stream_tile
+    launches)."""
     import torch
 
     from tiflash_tpu_torch.ops import stream_fuse as SF_
     from tiflash_tpu_torch.ops.cuda import direct_agg as DA, stream_agg as SA
+    from tiflash_tpu_torch.ops.cuda import stream_tile as ST
     from tiflash_tpu_torch.runtime.executor import run_query
 
-    d0, s0, f0 = DA.LAUNCHES, SA.LAUNCHES, SF_.FUSE_STATS["count"]
+    d0, s0, p0, f0 = DA.LAUNCHES, ST.LAUNCHES, SA.LAUNCHES, SF_.FUSE_STATS["count"]
     out, summary = run_query(plan, tables)
     torch.cuda.synchronize()
-    direct, stream, fused = (DA.LAUNCHES - d0, SA.LAUNCHES - s0,
+    direct, stream, fused = (DA.LAUNCHES - d0, ST.LAUNCHES - s0,
                              SF_.FUSE_STATS["count"] - f0)
     want_branch, want_fused = predicted
     if ((direct > 0) != (want_branch > 0) or fused != want_fused
-            or (stream > 0) != (want_fused > 0)):
+            or (stream > 0) != (want_fused > 0) or SA.LAUNCHES != p0):
         raise AssertionError(
-            f"{name}: direct_agg launches {direct}, stream_agg launches {stream}, "
+            f"{name}: direct_agg launches {direct}, stream_tile launches {stream}, "
+            f"planes kernel launches {SA.LAUNCHES - p0}, "
             f"fused runs {fused}; the CPU dispatch predicts {want_branch} "
             f"direct_agg branch calls and {want_fused} fused runs")
     if summary.device != "cuda:0" or summary.retries != cpu_retries:
@@ -1033,6 +1256,7 @@ def eight_table_phase(card: str, sf: float = SF):
     import torch
 
     from tiflash_tpu_torch.ops.cuda import direct_agg as DA, stream_agg as SA
+    from tiflash_tpu_torch.ops.cuda import stream_tile as ST
     from tiflash_tpu_torch.runtime.executor import run_query
     from tiflash_tpu_torch.storage.tpch import generate_tpch
 
@@ -1062,14 +1286,14 @@ def eight_table_phase(card: str, sf: float = SF):
 
     gpu8 = cat8.blocks("cuda")
     torch.cuda.synchronize()
-    SA.LAUNCHES = DA.LAUNCHES = 0
+    SA.LAUNCHES = DA.LAUNCHES = ST.LAUNCHES = 0
     for name, plan_fn in queries:
         got, summary, direct, stream = card_run_checked(
             name, plan_fn(), gpu8, cpu8[name], cpu_retries[name], predicted[name])
         checked = " and numpy" if name in NUMPY8 else ""
         print(f"{name} sf{sf} on cuda: {summary.result_rows} rows, {summary.retries} "
               f"retries {summary.overflow_nodes}, direct_agg launches {direct}, "
-              f"stream_agg launches {stream}, bit-exact vs port CPU run{checked}")
+              f"stream_tile launches {stream}, bit-exact vs port CPU run{checked}")
         if name in ("q13", "q14", "q18_300"):
             print(f"  {name} rows: {got[0]}")
     for name, plan_fn in queries:
@@ -1081,6 +1305,8 @@ def eight_table_phase(card: str, sf: float = SF):
 
 
 SPEC_RUNS = 5
+# device events per Q1 / Q6 run_query, PR 5 (bench/compare_trees.py)
+PR5_EVENTS = {"q1": 249, "q6": 51}
 
 
 def spec_phase(card: str, names, cpu_tables, gpu_tables, builder_cpu: dict,
@@ -1098,6 +1324,7 @@ def spec_phase(card: str, names, cpu_tables, gpu_tables, builder_cpu: dict,
     from tiflash_tpu_torch.bench.tpch_spec import SPEC_QUERIES
     from tiflash_tpu_torch.ops import stream_fuse as SF_
     from tiflash_tpu_torch.ops.cuda import direct_agg as DA, stream_agg as SA
+    from tiflash_tpu_torch.ops.cuda import stream_tile as ST
     from tiflash_tpu_torch.runtime.executor import run_query
 
     cpu, retries, predicted = {}, {}, {}
@@ -1107,12 +1334,12 @@ def spec_phase(card: str, names, cpu_tables, gpu_tables, builder_cpu: dict,
         if name not in builder_cpu:
             builder_cpu[name] = block_result(run_query(builder(), cpu_tables)[0])
     torch.cuda.synchronize()
-    SA.LAUNCHES = DA.LAUNCHES = 0
+    SA.LAUNCHES = DA.LAUNCHES = ST.LAUNCHES = 0
     for name in names:
         spec, _, _ = SPEC_QUERIES[name]
         card_run_checked(f"{name}_spec", spec(), gpu_tables, cpu[name],
                          retries[name], predicted[name])
-    launches = (SA.LAUNCHES, DA.LAUNCHES)
+    launches = (ST.LAUNCHES, DA.LAUNCHES)
     for name in names:
         spec, builder, same = SPEC_QUERIES[name]
         b0 = SF_.FUSE_STATS["count"]
@@ -1133,7 +1360,7 @@ def spec_phase(card: str, names, cpu_tables, gpu_tables, builder_cpu: dict,
               f"over {SPEC_RUNS} warm runs [{card}]")
         if name in ("q8", "q12", "q14"):
             print(f"  {name} spec rows: {cpu[name][0]}")
-    print(f"spec-form {', '.join(names)}: stream_agg launches {launches[0]}, "
+    print(f"spec-form {', '.join(names)}: stream_tile launches {launches[0]}, "
           f"direct_agg launches {launches[1]} (as the CPU dispatch predicts: "
           f"{[predicted[n] for n in names]})")
 
@@ -1197,6 +1424,7 @@ def sweep_phase(card: str, cpu_tables, gpu_tables) -> None:
                                                    sweep_base_plan)
     from tiflash_tpu_torch.expr.compile import ExprEvaluator
     from tiflash_tpu_torch.ops.cuda import direct_agg as DA, stream_agg as SA
+    from tiflash_tpu_torch.ops.cuda import stream_tile as ST
     from tiflash_tpu_torch.runtime.executor import run_query
 
     plan = functions_sweep_plan()
@@ -1204,10 +1432,10 @@ def sweep_phase(card: str, cpu_tables, gpu_tables) -> None:
     cpu_out, _ = run_query(plan, cpu_tables)
     cpu_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    SA.LAUNCHES = DA.LAUNCHES = 0
+    SA.LAUNCHES = DA.LAUNCHES = ST.LAUNCHES = 0
     gpu_out, summary = run_query(plan, gpu_tables)
     torch.cuda.synchronize()
-    if SA.LAUNCHES or DA.LAUNCHES:
+    if SA.LAUNCHES or DA.LAUNCHES or ST.LAUNCHES:
         raise AssertionError("the function sweep launched an aggregation kernel")
     if summary.device != "cuda:0":
         raise AssertionError(f"sweep: result on {summary.device}")
@@ -1226,10 +1454,10 @@ def sweep_phase(card: str, cpu_tables, gpu_tables) -> None:
               f"in {ms:.3f} ms (median of {SPEC_RUNS}, synchronized) [{card}]")
 
 
-def device_busy_ms(fn):
-    """Summed device time of the CUDA kernels and copies ``fn()`` runs, from
-    one ``torch.profiler`` trace; None where the trace holds no device
-    time."""
+def device_profile(fn):
+    """(summed device time in ms of the CUDA kernels and copies ``fn()``
+    runs, the number of device events, {kernel name: device ms}) from one
+    ``torch.profiler`` trace; (None, 0, {}) where it holds no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1238,9 +1466,16 @@ def device_busy_ms(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 if us else None
+    by_name = {e.key: getattr(e, "self_device_time_total", 0) / 1e3
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    us = sum(by_name.values()) * 1e3
+    events = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return (us / 1e3 if us else None), events, by_name
+
+
+def device_busy_ms(fn):
+    """Summed device time of ``fn()``'s CUDA kernels and copies (ms)."""
+    return device_profile(fn)[0]
 
 
 JSON_ERROR = "Invalid JSON text: The document root must not be followed by other values."
@@ -1274,6 +1509,7 @@ def string_phase(card: str, cpu_tables, gpu_tables, li: dict) -> dict:
     from tiflash_tpu_torch.expr.compile import ExprEvaluator
     from tiflash_tpu_torch.expr.nodes import call, col
     from tiflash_tpu_torch.ops.cuda import direct_agg as DA, stream_agg as SA
+    from tiflash_tpu_torch.ops.cuda import stream_tile as ST
     from tiflash_tpu_torch.plan import nodes as P
     from tiflash_tpu_torch.runtime.errors import EngineError
     from tiflash_tpu_torch.runtime.executor import run_query
@@ -1284,12 +1520,12 @@ def string_phase(card: str, cpu_tables, gpu_tables, li: dict) -> dict:
     cpu_out, _ = run_query(plan, cpu_tables)
     cpu_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    SA.LAUNCHES = DA.LAUNCHES = 0
+    SA.LAUNCHES = DA.LAUNCHES = ST.LAUNCHES = 0
     t0 = time.perf_counter()
     gpu_out, summary = run_query(plan, gpu_tables)
     torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
-    if SA.LAUNCHES or DA.LAUNCHES:
+    if SA.LAUNCHES or DA.LAUNCHES or ST.LAUNCHES:
         raise AssertionError("the string sweep launched an aggregation kernel")
     if summary.device != "cuda:0":
         raise AssertionError(f"string sweep: result on {summary.device}")
@@ -1313,11 +1549,11 @@ def string_phase(card: str, cpu_tables, gpu_tables, li: dict) -> dict:
     if cpu_res[0] != want:
         raise AssertionError(f"ship_month: port CPU run != numpy\n{cpu_res[0]}\n{want}")
     torch.cuda.synchronize()
-    SA.LAUNCHES = DA.LAUNCHES = 0
+    SA.LAUNCHES = DA.LAUNCHES = ST.LAUNCHES = 0
     out, summary = run_query(ship_month_plan(), gpu_tables)
     torch.cuda.synchronize()
     launches = DA.LAUNCHES
-    if launches != 1 or SA.LAUNCHES:
+    if launches != 1 or SA.LAUNCHES or ST.LAUNCHES:
         raise AssertionError(f"ship_month: direct_agg launches {launches}, "
                              f"stream_agg launches {SA.LAUNCHES}; expected 1 and 0")
     got = block_result(out)
@@ -1377,6 +1613,74 @@ def string_phase(card: str, cpu_tables, gpu_tables, li: dict) -> dict:
     return {"launches": launches, "max_abs_err": max_err, "yardsticks": y}
 
 
+def sf10_q1_phase(card: str, flush) -> dict:
+    """TPC-H Q1 at SF10 (lineitem only, Q1's seven columns): one launch of
+    the generated kernel over about 60M rows; ``sum_charge``'s bound passes
+    2^62, so the fuse recombines its plane sums in two-limb wide decimals
+    (``wide_out``).  Held bit-exact against numpy with Python integers (no
+    CPU run of the port).  Prints the data generation time, the kernel
+    source's generation time and build, the kernel's time and its bound."""
+    import torch
+
+    from tiflash_tpu_torch.bench.tpch_queries import q1_plan
+    from tiflash_tpu_torch.ops import tile_program as TP
+    from tiflash_tpu_torch.ops.cuda import build, stream_agg as SA, stream_tile as ST
+    from tiflash_tpu_torch.runtime.executor import run_query
+    from tiflash_tpu_torch.storage.tpch import generate_tpch
+
+    t0 = time.perf_counter()
+    cat = generate_tpch(sf=SF10, seed=SEED, tables=["lineitem"],
+                        column_subset={"lineitem": Q1_COLUMNS})
+    gen_s = time.perf_counter() - t0
+    t = cat["lineitem"].block
+    li = {n: t[n].data.numpy() for n in Q1_COLUMNS}
+    li["rf_dict"] = t["l_returnflag"].dictionary
+    li["ls_dict"] = t["l_linestatus"].dictionary
+    want = numpy_q1(li)
+    gpu = cat.blocks("cuda")
+    n_rows = cat["lineitem"].row_count
+    del cat, t, li
+    torch.cuda.synchronize()
+    SA.LAUNCHES = ST.LAUNCHES = 0
+    n_built = len(build.BUILD_SECONDS)
+    t0 = time.perf_counter()
+    out = []
+    (call,) = capture_calls(ST, "fused_group_sums",
+                            lambda: out.append(run_query(q1_plan(), gpu)[0]))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    if ST.LAUNCHES != 1 or SA.LAUNCHES:
+        raise AssertionError(f"q1 sf{SF10}: stream_tile launches {ST.LAUNCHES}, planes "
+                             f"kernel {SA.LAUNCHES}; expected 1 and 0")
+    if out[0]["sum_charge"].data.dim() != 2:
+        raise AssertionError(f"q1 sf{SF10}: sum_charge did not take the two-limb "
+                             f"recombination")
+    got = block_result(out[0])[0]
+    if got != want:
+        raise AssertionError(f"q1 sf{SF10}: cuda result != numpy\n{got}\n{want}")
+    _, program, _, n_limbs, _, pf, h, _ = call
+    t0 = time.perf_counter()
+    ST.kernel_source(program, SA.field_table(pf, n_limbs), h)
+    src_s = time.perf_counter() - t0
+    err = fused_equals_plain(ST, call)
+    k_ms = time_ms(lambda: ST.fused_group_sums(*call), KERNEL_REPS, flush)
+    n_bytes = tile_bound_bytes(TP, call)["bound"]
+    plan = q1_plan()
+    q_ms = time_ms(lambda: run_query(plan, gpu), WARM_RUNS)
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    new_builds = len(build.BUILD_SECONDS) - n_built
+    print(f"q1 sf{SF10} on cuda: {n_rows} lineitem rows made in {gen_s:.1f} s; one "
+          f"stream_tile launch, sum_charge through the two-limb recombination, "
+          f"bit-exact vs numpy (Python integers): {got['sum_charge']}; source generated "
+          f"in {src_s * 1e3:.1f} ms, {new_builds} new builds, first run {first_s:.2f} s")
+    print(f"  q1 sf{SF10} stream_tile: kernel == plain (exact), kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({n_bytes} B at 3.35 TB/s), share of bound {bound_ms / k_ms:.1%}; run_query "
+          f"median {q_ms:.3f} ms over {WARM_RUNS} warm runs [{card}]")
+    del gpu, call, out
+    return {"rows": n_rows, "ms": k_ms, "bound_ms": bound_ms, "run_query_ms": q_ms,
+            "source_generation_s": src_s, "new_builds": new_builds, "max_abs_err": err}
+
+
 def main() -> int:
     import torch
 
@@ -1388,41 +1692,37 @@ def main() -> int:
         q1_plan, q3_plan, q4_plan, q6_plan, q7_nation_pairs_plan, q7_plan, q10_plan,
         q22_plan, sort_topn_plan, topn_100m_block, topn_100m_plan)
     from tiflash_tpu_torch.ops import stream_fuse as SF_
+    from tiflash_tpu_torch.ops import tile_program as TP
     from tiflash_tpu_torch.ops.cuda import build, direct_agg as DA, stream_agg as SA
+    from tiflash_tpu_torch.ops.cuda import stream_tile as ST
     from tiflash_tpu_torch.runtime.executor import run_query
+    from tiflash_tpu_torch.storage.catalog import blocks_from_numpy
     from tiflash_tpu_torch.storage.tpch import generate_tpch
+    from tiflash_tpu_torch.testing import fuse_cases as FC
 
     card = card_line()
     print(card)
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 
-    # ---- 2. build: one nvcc per source, all at once -------------------------
-    kernels = ("stream_agg", "direct_agg")
-    t0 = time.perf_counter()
-    build.build_libraries(kernels)
-    print(f"build {', '.join(k + '.cu' for k in kernels)}: "
-          f"{time.perf_counter() - t0:.2f} s")
-    for k in kernels:
-        print(f"  nvcc {k}.cu: {build.BUILD_SECONDS[k]:.2f} s")
-        for line in build.BUILD_LOG.get(k, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
-
-    # data and the port's CPU reference runs (plain path)
+    # data and the port's CPU reference runs (plain path); the fused calls
+    # they make give the generated kernels' sources
     t0 = time.perf_counter()
     cat = generate_tpch(sf=SF, seed=SEED, tables=["lineitem"])
     n_rows = cat["lineitem"].row_count
     print(f"lineitem sf{SF}: {n_rows} rows in {time.perf_counter() - t0:.1f} s")
     cpu_tables = cat.blocks("cpu")
-    cpu_res, layouts = {}, {}
+    cpu_res, layouts, sources = {}, {}, {}
     for name, plan_fn in (("q1", q1_plan), ("q6", q6_plan)):
         before = SF_.FUSE_STATS["count"]
-        out, _ = run_query(plan_fn(), cpu_tables)
-        if SF_.FUSE_STATS["count"] != before + 1:
+        out = []
+        calls = capture_calls(ST, "fused_group_sums",
+                              lambda: out.append(run_query(plan_fn(), cpu_tables)[0]))
+        if SF_.FUSE_STATS["count"] != before + 1 or len(calls) != 1:
             raise AssertionError(f"{name}: fuse did not engage on the CPU run")
-        cpu_res[name] = block_result(out)
+        cpu_res[name] = block_result(out[0])
         layouts[name] = SF_.FUSE_STATS["plane_fields"]
+        sources[name] = fused_source(SA, ST, calls[0])
     li = lineitem_arrays(cat)
     np_res = {"q1": numpy_q1(li), "q6": numpy_q6(li)}
     for name in ("q1", "q6"):
@@ -1430,6 +1730,38 @@ def main() -> int:
             raise AssertionError(f"{name}: port CPU run != numpy\n{cpu_res[name][0]}\n"
                                  f"{np_res[name]}")
     print("cpu reference runs equal numpy for q1 and q6")
+    t0 = time.perf_counter()
+    tile_cases = []
+    for c in FC.CASES:
+        tables = FC.numpy_tables(c.columns(TILE_CASE_ROWS, c.seed))
+        cpu_t = blocks_from_numpy(tables, "cpu")
+        calls = capture_calls(ST, "fused_group_sums",
+                              lambda: run_query(c.plan(FC.TORCH), cpu_t))
+        if len(calls) != 1:
+            raise AssertionError(f"{c.name}: the fuse did not engage on the CPU run")
+        sources[c.name] = fused_source(SA, ST, calls[0])
+        tile_cases.append((c.name, c.plan(FC.TORCH), cpu_t,
+                           blocks_from_numpy(tables, "cuda")))
+    print(f"{len(tile_cases)} fuse cases at {TILE_CASE_ROWS} rows made and run on the "
+          f"cpu ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- 2. build: one nvcc per source, all at once --------------------------
+    kernels = ("stream_agg", "direct_agg")
+    generated = list(dict.fromkeys(sources.values()))
+    t0 = time.perf_counter()
+    build.build_libraries(kernels, generated=generated)
+    print(f"build {', '.join(k + '.cu' for k in kernels)} and {len(generated)} generated "
+          f"stream_tile sources: {time.perf_counter() - t0:.2f} s")
+    tags = {prefix + "-" + build.source_tag(text): [n for n, v in sources.items()
+                                                    if v == (prefix, text)]
+            for prefix, text in generated}
+    for k in list(kernels) + list(tags):
+        print(f"  nvcc {k}{'.cu' if k in kernels else ' (' + ', '.join(tags[k]) + ')'}: "
+              f"{build.BUILD_SECONDS[k]:.2f} s")
+        for line in build.BUILD_LOG.get(k, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas:", line.strip())
+    generated_build_s = {k: build.BUILD_SECONDS[k] for k in tags}
 
     t0 = time.perf_counter()
     cat7 = generate_tpch(sf=SF, seed=SEED, tables=Q7_TABLES)
@@ -1452,77 +1784,124 @@ def main() -> int:
     # tolerance zero: the outputs are integer sums, compared with torch.equal
     max_err = check_stream_agg(SA, layouts["q1"], layouts["q6"], n_rows)
     direct_err = check_direct_agg(DA, cat7["lineitem"].row_count)
+    tile_err = check_stream_tile(SA, ST, tile_cases)
+    del tile_cases
 
-    # ---- 4. Q1 and Q6 at SF1 on the card ----------------------------------------
+    # ---- 4. Q1 and Q6 at SF1 on the card: one generated launch each ------------
     gpu_tables = cat.blocks("cuda")
+    on_card = []
+    real_evaluate = TP.evaluate
+
+    def evaluate_spy(program, tile, in_bounds=None):
+        if any(t.is_cuda for t in tile.values()):
+            on_card.append(1)
+        return real_evaluate(program, tile, in_bounds)
+
     torch.cuda.synchronize()
-    SA.LAUNCHES = DA.LAUNCHES = 0
+    SA.LAUNCHES = DA.LAUNCHES = ST.LAUNCHES = 0
     fused_before = SF_.FUSE_STATS["count"]
     launches_per_query = {}
     outs = {}
-    for name, plan_fn in (("q1", q1_plan), ("q6", q6_plan)):
-        l0, f0 = SA.LAUNCHES, SF_.FUSE_STATS["count"]
-        out, summary = run_query(plan_fn(), gpu_tables)
-        torch.cuda.synchronize()
-        outs[name] = out
-        launches_per_query[name] = SA.LAUNCHES - l0
-        if SF_.FUSE_STATS["count"] != f0 + 1:
-            raise AssertionError(f"{name}: fuse did not engage on cuda")
-        if launches_per_query[name] < 1:
-            raise AssertionError(f"{name}: stream_agg kernel was not launched")
-        if summary.device != "cuda:0":
-            raise AssertionError(f"{name}: result on {summary.device}")
-    main_path_launches = SA.LAUNCHES
+    TP.evaluate = evaluate_spy
+    try:
+        for name, plan_fn in (("q1", q1_plan), ("q6", q6_plan)):
+            l0, f0 = ST.LAUNCHES, SF_.FUSE_STATS["count"]
+            out, summary = run_query(plan_fn(), gpu_tables)
+            torch.cuda.synchronize()
+            outs[name] = out
+            launches_per_query[name] = ST.LAUNCHES - l0
+            if SF_.FUSE_STATS["count"] != f0 + 1:
+                raise AssertionError(f"{name}: fuse did not engage on cuda")
+            if launches_per_query[name] != 1:
+                raise AssertionError(f"{name}: {launches_per_query[name]} stream_tile "
+                                     f"launches, expected 1")
+            if summary.device != "cuda:0":
+                raise AssertionError(f"{name}: result on {summary.device}")
+    finally:
+        TP.evaluate = real_evaluate
+    main_path_launches = ST.LAUNCHES
+    planes_launches = SA.LAUNCHES
     if SF_.FUSE_STATS["count"] != fused_before + 2:
         raise AssertionError("fuse count off")
-    if DA.LAUNCHES:
-        raise AssertionError("q1/q6 launched the direct_agg kernel")
+    if DA.LAUNCHES or SA.LAUNCHES or on_card:
+        raise AssertionError(f"q1/q6 launched direct_agg {DA.LAUNCHES} and the planes "
+                             f"kernel {SA.LAUNCHES} times, evaluated on the card "
+                             f"{len(on_card)} times; expected 0")
     for name, out in outs.items():
         got = block_result(out)
         if got != cpu_res[name]:
             raise AssertionError(f"{name}: cuda result != cpu result\n{got}\n{cpu_res[name]}")
         if got[0] != np_res[name]:
             raise AssertionError(f"{name}: cuda result != numpy")
-        print(f"{name} sf{SF} on cuda: kernel launches {launches_per_query[name]}, "
-              f"bit-exact vs port CPU run and numpy: {got[0]}")
+        print(f"{name} sf{SF} on cuda: stream_tile launches {launches_per_query[name]}, "
+              f"planes kernel launches 0, evaluate on the card 0; bit-exact vs port CPU "
+              f"run and numpy: {got[0]}")
 
-    # timings: whole query, then the kernel, the plain version, one
-    # index_add_ and the bound on the query's own group_sums arguments
-    # (captured in one extra run)
+    # timings: whole query (median and profiler), then at the query's own
+    # fused call: the generated kernel, the unfused path, plain, one
+    # index_add_ and the bound; the planes kernel at the planes the
+    # program's evaluate makes on the card
     flush = L2Flush()
-    stream_y, q_ms = {}, {}
+    stream_y, tile_y, q_ms = {}, {}, {}
     for name, plan_fn in (("q1", q1_plan), ("q6", q6_plan)):
         plan = plan_fn()
         q_ms[name] = time_ms(lambda: run_query(plan, gpu_tables), WARM_RUNS)
-        captured = capture_calls(SA, "group_sums", lambda: run_query(plan, gpu_tables))
-        y = stream_agg_yardsticks(SA, captured, flush)
-        stream_y[name] = y
-        c = captured[0]
-        lp = SA.plan_launch(c[3], len(c[1]), len(c[2]), c[5])
+        busy, events, by_name = device_profile(lambda: run_query(plan, gpu_tables))
+        tile_dev = sum(ms for k, ms in by_name.items() if "stream_tile_kernel" in k)
+        (call,) = capture_calls(ST, "fused_group_sums", lambda: run_query(plan, gpu_tables))
+        y = fused_yardsticks(SA, ST, TP, call, flush)
+        tile_y[name] = y
+        stream_y[name] = stream_agg_yardsticks(SA, [y.pop("planes_call")], flush)
+        _, program, S, L, _, pf, h, _ = call
+        tp = ST.plan_tile_launch(S, L, sum(map(len, pf)), h)
+        busy_txt = ("device busy not measured (the trace held no device time)"
+                    if busy is None else f"device busy {busy:.4f} ms in {events} device "
+                    f"events per run (PR 5: {PR5_EVENTS[name]}), of which the stream_tile "
+                    f"kernel {tile_dev:.4f} ms, idle share {1 - busy / q_ms[name]:.1%} of "
+                    f"the median")
         print(f"{name} sf{SF} run_query median {q_ms[name]:.3f} ms over {WARM_RUNS} warm "
-              f"runs; stream_agg regime {lp.regime} (variant {lp.variant}), headroom "
-              f"{c[5]}, 16-byte path {lp.vector} [{card}]")
-        print("  " + yardstick_line(f"{name} stream_agg", y, card))
+              f"runs; {busy_txt}; stream_tile regime {tp.regime}, headroom {h}, 16-byte "
+              f"path {tp.vector}, {len(program.params)} launch parameters [{card}]")
+        print("  " + fused_line(name, y, card))
+        print("  " + yardstick_line(f"{name} stream_agg (planes kernel)", stream_y[name],
+                                    card))
+
+    # literal reuse: a second Q6 draw builds nothing new
+    n_built = len(build.BUILD_SECONDS)
+    plan = q6_plan(**Q6_OTHER)
+    got = block_result(run_query(plan, gpu_tables)[0])
+    want = numpy_q6(li, (Q6_OTHER["date"], Q6_OTHER["date_end"]),
+                    (round(Q6_OTHER["disc_lo"] * 100), round(Q6_OTHER["disc_hi"] * 100)),
+                    round(Q6_OTHER["quantity"] * 100))
+    if got[0] != want or got != block_result(run_query(plan, cpu_tables)[0]):
+        raise AssertionError(f"q6 {Q6_OTHER}: cuda result != numpy / cpu run")
+    if len(build.BUILD_SECONDS) != n_built:
+        raise AssertionError("q6 with other literals built a new library")
+    print(f"q6 {Q6_OTHER} on cuda: bit-exact vs numpy and the CPU run, {got[0]}; no new "
+          f"build ({n_built} libraries built or loaded in this process)")
 
     # ---- 4b. spec-form Q1 and Q6, and the function sweep, on lineitem ----
     spec_phase(card, ("q1", "q6"), cpu_tables, gpu_tables,
                {"q1": cpu_res["q1"], "q6": cpu_res["q6"]})
     sweep_phase(card, cpu_tables, gpu_tables)
     ship = string_phase(card, cpu_tables, gpu_tables, li)
-    del gpu_tables
+    del gpu_tables, cpu_tables
+
+    # ---- 4c. Q1 at SF10: one launch over 60M rows, the two-limb recombination
+    sf10 = sf10_q1_phase(card, flush)
 
     # ---- 5. Q7 and Q7 over all nation pairs at SF1 on the card -------------------
     gpu7 = cat7.blocks("cuda")
     torch.cuda.synchronize()
-    SA.LAUNCHES = DA.LAUNCHES = 0
+    SA.LAUNCHES = DA.LAUNCHES = ST.LAUNCHES = 0
     direct_per_query = {}
     for name, plan_fn in q7_plans:
-        d0, s0 = DA.LAUNCHES, SA.LAUNCHES
+        d0 = DA.LAUNCHES
         out, summary = run_query(plan_fn(), gpu7)
         torch.cuda.synchronize()
         direct_per_query[name] = DA.LAUNCHES - d0
-        if SA.LAUNCHES != s0:
-            raise AssertionError(f"{name}: launched the stream_agg kernel")
+        if SA.LAUNCHES or ST.LAUNCHES:
+            raise AssertionError(f"{name}: launched a stream_agg kernel")
         if summary.device != "cuda:0" or summary.retries:
             raise AssertionError(f"{name}: ran on {summary.device} with "
                                  f"{summary.retries} retries")
@@ -1589,7 +1968,7 @@ def main() -> int:
 
     gpu3 = {c: cats[c].blocks("cuda") for c in cats}
     torch.cuda.synchronize()
-    SA.LAUNCHES = DA.LAUNCHES = 0
+    SA.LAUNCHES = DA.LAUNCHES = ST.LAUNCHES = 0
     fused_before = SF_.FUSE_STATS["count"]
     for name, plan_fn, c in slice3:
         out, summary = run_query(plan_fn(), gpu3[c])
@@ -1606,7 +1985,8 @@ def main() -> int:
               f"CPU run and numpy")
         if name in ("q3", "q22"):
             print(f"  {name} rows: {got[0]}")
-    if SA.LAUNCHES or DA.LAUNCHES or SF_.FUSE_STATS["count"] != fused_before:
+    if (SA.LAUNCHES or DA.LAUNCHES or ST.LAUNCHES
+            or SF_.FUSE_STATS["count"] != fused_before):
         raise AssertionError("q3/q10/q4/q22/topn reached a kernel or the fused path")
     for name, plan_fn, c in slice3:
         plan, tables = plan_fn(), gpu3[c]
@@ -1645,6 +2025,7 @@ def main() -> int:
     del gpu8
 
     q1y = stream_y["q1"]
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "share_of_bound")
 
     def entry(name, replaces, launches, max_abs, y):
         return {"name": name, "route": "cuda",
@@ -1654,9 +2035,24 @@ def main() -> int:
                 "bound_by": "bytes", "library_ms": y["library_ms"],
                 "share_of_bound": y["bound_ms"] / y["ms"]}
 
+    # the fuse cases, Q1, Q6 and Q1 at SF10, each kernel == plain
+    tile_err = max(tile_err, tile_y["q1"]["max_abs_err"], tile_y["q6"]["max_abs_err"],
+                   sf10["max_abs_err"])
+    design = ("design_bound_ms", "share_of_design_bound")
+    tile = dict(entry("stream_tile", "tiflash_tpu/ops/pallas/stream_agg.py:160",
+                      main_path_launches, tile_err, tile_y["q1"]),
+                source="tiflash_tpu_torch/csrc/stream_tile.cu.in",
+                tile_function="tiflash_tpu/ops/pallas/stream_agg.py:88",
+                unfused_ms=tile_y["q1"]["unfused_ms"], build_seconds=generated_build_s,
+                **{k: tile_y["q1"][k] for k in design},
+                q6={k: tile_y["q6"][k] for k in keys + ("unfused_ms",) + design},
+                sf10_q1=sf10)
     print(json.dumps({"kernels": [
-        entry("stream_agg", "tiflash_tpu/ops/pallas/stream_agg.py:160",
-              main_path_launches, max_err, q1y),
+        # the planes kernel: off the main path since the generated kernel
+        # (0 launches there), timed at the planes evaluate makes on the card
+        dict(entry("stream_agg", "tiflash_tpu/ops/pallas/stream_agg.py:160",
+                   planes_launches, max_err, q1y), on_main_path=False,
+             q6={k: stream_y["q6"][k] for k in keys if k in stream_y["q6"]}),
         dict(entry("direct_agg", "tiflash_tpu/ops/pallas/direct_agg.py:116",
                    q7_launches, direct_err, direct_y),
              sector_bound_ms=direct_y["sector_bound_ms"],
@@ -1664,6 +2060,7 @@ def main() -> int:
                          "max_abs_err": ship["max_abs_err"],
                          **{k: ship["yardsticks"][k] for k in (
                              "ms", "plain_ms", "bound_ms", "library_ms")}}),
+        tile,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -22,6 +22,7 @@ import chip_smoke
 assert callable(chip_smoke.main) and callable(chip_smoke.numpy_q1)
 assert callable(chip_smoke.numpy_q7) and callable(chip_smoke.check_direct_agg)
 assert callable(chip_smoke.numpy_q3) and callable(chip_smoke.numpy_topn)
+assert callable(chip_smoke.check_stream_tile) and callable(chip_smoke.sf10_q1_phase)
 for f in ("numpy_q2", "numpy_q9", "numpy_q13", "numpy_q14", "numpy_q16",
           "numpy_q18", "eight_table_phase"):
     assert callable(getattr(chip_smoke, f)), f
@@ -31,7 +32,8 @@ for f in ("spec_phase", "sweep_phase", "compare_sweep", "cpu_run_with_spy",
     assert callable(getattr(chip_smoke, f)), f
 for m in ("ops.join", "ops.merge", "ops.cuda.direct_agg", "plan.rewrite",
           "ops.hashing", "runtime.errors", "bench.tpch_spec", "expr.regexp_json",
-          "expr.duration", "bench.strings"):
+          "expr.duration", "bench.strings", "ops.tile_program", "ops.cuda.stream_tile",
+          "testing.fuse_cases"):
     assert "tiflash_tpu_torch." + m in names, m
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "tiflash_tpu."))

@@ -6,15 +6,18 @@ Each DIR is the root of a checkout (for example a parent commit unpacked
 with ``git archive`` into a directory ``.gitignore`` lists).  In turns
 OLD, NEW, NEW, OLD, three times over, a fresh process
 imports that checkout's ``tiflash_tpu_torch``, builds its kernels and,
-at SF1 from seed 0, measures TPC-H Q1 and Q6 (the stream_agg kernel) and
-Q7 over all nation pairs (the direct_agg kernel):
+at SF1 from seed 0, measures TPC-H Q1 and Q6 (the fused stream_agg
+path: the kernel generated per plan, ``ops/cuda/stream_tile.py``, where
+the checkout has it, else the planes kernel) and Q7 over all nation pairs
+(the direct_agg kernel):
 
 - the ``run_query`` median of 30 warm runs;
 - one ``torch.profiler`` window of 5 runs: wall, device busy time (the
   sum of the device events' spans), idle share and device events per run
   (the profiler's own overhead is in its wall);
-- the kernel: every call of the checkout's wrapper (``group_sums``) that
-  one run makes is captured and replayed through that same wrapper,
+- the kernel: every call of the checkout's wrapper (``fused_group_sums``
+  or ``group_sums``) that one run makes is captured and replayed through
+  that same wrapper,
   median of 20 CUDA-event timings, the L2 flushed by a read before each.
 
 Each checkout runs its own wrapper on the arguments its own query made,
@@ -97,11 +100,16 @@ def worker(tree: str) -> dict:
     build.build_libraries(("stream_agg", "direct_agg"))
     flush = smoke.L2Flush()
     out = {"tree": str(tree_path), "card": smoke.card_line()}
-    phases = ((["lineitem"], (("q1", q1_plan, SA), ("q6", q6_plan, SA))),
-              (smoke.Q7_TABLES, (("q7_pairs", q7_nation_pairs_plan, DA),)))
+    try:
+        from tiflash_tpu_torch.ops.cuda import stream_tile
+        fused = (stream_tile, "fused_group_sums")
+    except ImportError:  # a checkout from before the generated kernel
+        fused = (SA, "group_sums")
+    phases = ((["lineitem"], (("q1", q1_plan, fused), ("q6", q6_plan, fused))),
+              (smoke.Q7_TABLES, (("q7_pairs", q7_nation_pairs_plan, (DA, "group_sums")),)))
     for tables, queries in phases:
         gpu = generate_tpch(sf=smoke.SF, seed=smoke.SEED, tables=tables).blocks("cuda")
-        for name, plan_fn, mod in queries:
+        for name, plan_fn, (mod, fn_name) in queries:
             plan = plan_fn()
 
             def run():
@@ -110,8 +118,8 @@ def worker(tree: str) -> dict:
             result = smoke.block_result(run()[0])
             q_ms = smoke.time_ms(run, QUERY_RUNS)
             wall, busy, idle, events = profile_idle(run)
-            captured = smoke.capture_calls(mod, "group_sums", run)
-            k_ms = smoke.time_ms(lambda: [mod.group_sums(*c) for c in captured],
+            captured = smoke.capture_calls(mod, fn_name, run)
+            k_ms = smoke.time_ms(lambda: [getattr(mod, fn_name)(*c) for c in captured],
                                  smoke.KERNEL_REPS, flush)
             out[name] = {"run_query_ms": q_ms, "kernel_ms": k_ms,
                          "kernel_calls": len(captured), "profile_wall_ms": wall,

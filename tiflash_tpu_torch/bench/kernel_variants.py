@@ -2,16 +2,18 @@
 
     python3 -m tiflash_tpu_torch.bench.kernel_variants
 
-Each variant is this checkout's ``csrc/<kernel>.cu`` with one edit, an
-exact text substitution that must match once (an edited source stops
-the script instead of timing something else).  All variants build at
+Each variant is this checkout's ``csrc/<kernel>.cu`` (with the shared
+``csrc/stream_agg_core.cuh`` written in where it is included) with one
+edit, an exact text substitution that must match once (an edited source
+stops the script instead of timing something else).  All variants build at
 once beside the real kernels and are loaded in their place, one at a
 time, through the wrapper's own ``_kernel_lib``.  Each variant is held
 against the plain version (``torch.equal``) on every input before it is
 timed there:
 
-- stream_agg at Q1's and Q6's own ``group_sums`` arguments at SF1 (seed
-  0): ``predicated_add`` (as committed), ``select_add``
+- stream_agg (the planes kernel) at Q1's and Q6's own slots and planes
+  at SF1 (seed 0), which the fused call's tile program makes on the card
+  (``evaluate``): ``predicated_add`` (as committed), ``select_add``
   (``acc += hit ? v : 0``), ``u64_shared_atomic`` (one 64-bit shared
   atomicAdd where the kernel adds two native 32-bit ones);
 - direct_agg at Q7-pairs' own arguments at SF1 and at the same rows with
@@ -96,6 +98,9 @@ def variant_source(src: str, edits) -> str:
 def build_variants(build, kernel: str, variants: dict) -> dict:
     """{variant: path of its shared library}, one nvcc each, all at once."""
     src = (build.CSRC / f"{kernel}.cu").read_text()
+    include = '#include "stream_agg_core.cuh"'
+    if include in src:
+        src = src.replace(include, (build.CSRC / "stream_agg_core.cuh").read_text())
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name, edits in variants.items():
@@ -134,7 +139,9 @@ def main() -> int:
 
     from tiflash_tpu_torch.bench.compare_trees import smoke_helpers
     from tiflash_tpu_torch.bench.tpch_queries import q1_plan, q6_plan, q7_nation_pairs_plan
+    from tiflash_tpu_torch.ops import tile_program as TP
     from tiflash_tpu_torch.ops.cuda import build, direct_agg as DA, stream_agg as SA
+    from tiflash_tpu_torch.ops.cuda import stream_tile as ST
     from tiflash_tpu_torch.runtime.executor import run_query
     from tiflash_tpu_torch.storage.tpch import generate_tpch
 
@@ -150,8 +157,14 @@ def main() -> int:
 
     # the queries' own arguments, captured through the committed kernels
     gpu = generate_tpch(sf=smoke.SF, seed=smoke.SEED, tables=["lineitem"]).blocks("cuda")
-    stream_in = {q: smoke.capture_calls(SA, "group_sums", lambda: run_query(f(), gpu))
-                 for q, f in (("q1", q1_plan), ("q6", q6_plan))}
+
+    def planes_calls(plan_fn):
+        (call,) = smoke.capture_calls(ST, "fused_group_sums", lambda: run_query(plan_fn(), gpu))
+        inputs, program, n_slots, n_limbs, _, pf, h, _ = call
+        slots, planes = TP.evaluate(program, TP.stage(program, inputs))
+        return [(slots, planes, SA.field_table(pf, n_limbs), n_slots, None, h)]
+
+    stream_in = {q: planes_calls(f) for q, f in (("q1", q1_plan), ("q6", q6_plan))}
     del gpu
     gpu = generate_tpch(sf=smoke.SF, seed=smoke.SEED, tables=smoke.Q7_TABLES).blocks("cuda")
     (q7,) = smoke.capture_calls(DA, "group_sums", lambda: run_query(q7_nation_pairs_plan(), gpu))

@@ -146,17 +146,21 @@ def q4_plan() -> P.PlanNode:
     return P.Sort([SortKey("o_orderpriority")], agg)
 
 
-def q6_plan() -> P.PlanNode:
-    """Forecast revenue change: pure scan+filter+scalar agg."""
+def q6_plan(date: str = "1994-01-01", date_end: str = "1995-01-01",
+            disc_lo: float = 0.05, disc_hi: float = 0.07,
+            quantity: float = 24.0) -> P.PlanNode:
+    """Forecast revenue change: pure scan+filter+scalar agg.  The
+    arguments are TPC-H's substitution parameters (defaults: its
+    validation values; DISCOUNT 0.06 gives the 0.05..0.07 window)."""
     scan = P.TableScan(
         "lineitem", columns=["l_shipdate", "l_discount", "l_quantity", "l_extendedprice"]
     )
     filt = P.Selection(
-        (col("l_shipdate") >= "1994-01-01")
-        & (col("l_shipdate") < "1995-01-01")
-        & (col("l_discount") >= 0.05)
-        & (col("l_discount") <= 0.07)
-        & (col("l_quantity") < 24.0),
+        (col("l_shipdate") >= date)
+        & (col("l_shipdate") < date_end)
+        & (col("l_discount") >= disc_lo)
+        & (col("l_discount") <= disc_hi)
+        & (col("l_quantity") < quantity),
         scan,
     )
     proj = P.Projection({"rev": col("l_extendedprice") * col("l_discount")}, filt)

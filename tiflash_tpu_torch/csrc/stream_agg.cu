@@ -1,8 +1,13 @@
 // Grouped field sums of the fused scan -> filter -> project -> aggregate
-// path, hand-written for Hopper (sm_90a).
+// path over slots and planes in device memory, hand-written for Hopper
+// (sm_90a): the "planes kernel".
 //
-// Replaces the Pallas TPU kernel tiflash_tpu/ops/pallas/stream_agg.py
-// (stream_group_sums, body _kernel).  The contract is the reference's:
+// Replaces the accumulation half of the Pallas TPU kernel
+// tiflash_tpu/ops/pallas/stream_agg.py (stream_group_sums, body _kernel);
+// the fused path itself runs the kernel generated per plan
+// (stream_tile.cu.in), which shares this kernel's accumulator
+// (stream_agg_core.cuh) and computes slots and planes in registers.  This
+// one serves group_sums.  The contract is the reference's:
 // every row carries a slot id (live rows in [0, S), dead rows anything
 // else) and L int32 planes; each plane packs one or more fields
 // (bit offset, capacity bits); the result is, per slot, the int64 sum of
@@ -64,7 +69,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "stream_agg_core.cuh"
+
 namespace {
+
+using namespace stream_core;
 
 constexpr int MAX_PLANES = 240;
 constexpr int MAX_FIELDS = 256;
@@ -83,39 +92,15 @@ struct Params {
   unsigned int field[MAX_FIELDS];  // offset | cap << 5 | out index << 10
 };
 
-__device__ __forceinline__ unsigned field_of(unsigned a, unsigned d) {
-  const unsigned cap = (d >> 5) & 31u;
-  return (a >> (d & 31u)) & ((1u << cap) - 1u);
-}
-
-// *dst += v mod 2^64 in shared memory with native 32-bit atomics (a
-// 64-bit shared atomicAdd is a compare-and-swap loop): the low word's old
-// value tells whether this add carried into the high word.
-__device__ __forceinline__ void shared_add_u64(unsigned long long* dst,
-                                               unsigned long long v) {
-  unsigned* w = reinterpret_cast<unsigned*>(dst);
-  const unsigned lo = (unsigned)v;
-  const unsigned old = atomicAdd(w, lo);
-  const unsigned hi = (unsigned)(v >> 32) + (old + lo < old ? 1u : 0u);
-  if (hi) atomicAdd(w + 1, hi);
-}
-
-// Sum x over the warp (all 32 lanes converged) and add it into *dst.
-__device__ __forceinline__ void warp_add(unsigned long long* dst, unsigned x,
-                                         int lane) {
-  const unsigned lo = __reduce_add_sync(0xffffffffu, x & 0xffffu);
-  const unsigned hi = __reduce_add_sync(0xffffffffu, x >> 16);
-  const unsigned long long v = (unsigned long long)lo + ((unsigned long long)hi << 16);
-  if (lane == 0 && v) shared_add_u64(dst, v);
-}
-
-__device__ __forceinline__ int4 load4(const int32_t* p) {
-  return __ldg(reinterpret_cast<const int4*>(p));
-}
-
-__device__ __forceinline__ int lane_of(const int4& v, int r) {
-  return r == 0 ? v.x : r == 1 ? v.y : r == 2 ? v.z : v.w;
-}
+// the layout as the launch parameters carry it
+struct ParamsLayout {
+  const Params* p;
+  __device__ __forceinline__ int n_slots() const { return p->n_slots; }
+  __device__ __forceinline__ int n_planes() const { return p->n_planes; }
+  __device__ __forceinline__ int n_fields() const { return p->n_fields; }
+  __device__ __forceinline__ int begin(int l) const { return p->field_begin[l]; }
+  __device__ __forceinline__ unsigned field(int f) const { return p->field[f]; }
+};
 
 __device__ __forceinline__ bool any_live(const int4& s, int n_slots) {
   const unsigned n = (unsigned)n_slots;
@@ -123,169 +108,67 @@ __device__ __forceinline__ bool any_live(const int4& s, int n_slots) {
          ((unsigned)s.w < n);
 }
 
-__device__ void zero_block_totals(const Params& p, unsigned long long* blk) {
-  for (int k = threadIdx.x; k < p.n_slots * p.n_fields; k += blockDim.x)
-    blk[k] = 0ull;
-}
+// the row source: slots and planes read from device memory
+template <int LM>
+struct PlanesSource {
+  const Params* p;
+  using Quad = int4;        // 4 rows' slots
+  struct Rest { int4 x[LM]; };  // 4 rows of each plane
 
-__device__ void add_block_totals(const Params& p, const unsigned long long* blk) {
-  for (int k = threadIdx.x; k < p.n_slots * p.n_fields; k += blockDim.x) {
-    const unsigned long long v = blk[k];
-    if (v) atomicAdd(p.out + k, v);
+  __device__ __forceinline__ long long n_rows() const { return p->n_rows; }
+  __device__ __forceinline__ long long head() const { return p->head; }
+  __device__ __forceinline__ bool vector() const { return p->vector; }
+  __device__ __forceinline__ int window() const { return p->window; }
+  __device__ __forceinline__ Quad load(long long row0) const { return load4(p->slots + row0); }
+  __device__ __forceinline__ Quad none() const { return make_int4(-1, -1, -1, -1); }
+  __device__ __forceinline__ bool slots(const Quad& q, bool valid, int (&slot)[4]) const {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) slot[r] = lane_of(q, r);
+    return valid && any_live(q, p->n_slots);
   }
-}
+  __device__ __forceinline__ void rest(long long row0, bool any, Rest& x) const {
+#pragma unroll
+    for (int l = 0; l < LM; ++l) {
+      x.x[l] = make_int4(0, 0, 0, 0);
+      if (any && l < p->n_planes) x.x[l] = load4(p->planes[l] + row0);
+    }
+  }
+  template <int L>
+  __device__ __forceinline__ void planes(const Quad&, const Rest& x,
+                                         unsigned (&v)[L][4]) const {
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      v[l][0] = (unsigned)x.x[l].x;
+      v[l][1] = (unsigned)x.x[l].y;
+      v[l][2] = (unsigned)x.x[l].z;
+      v[l][3] = (unsigned)x.x[l].w;
+    }
+  }
+  template <int L>
+  __device__ __forceinline__ int row(long long i, bool valid, unsigned (&v)[L]) const {
+    const int slot = valid ? __ldg(p->slots + i) : -1;
+    const bool live = (unsigned)slot < (unsigned)p->n_slots;
+#pragma unroll
+    for (int l = 0; l < L; ++l)
+      v[l] = (live && l < p->n_planes) ? (unsigned)__ldg(p->planes[l] + i) : 0u;
+    return live ? slot : -1;
+  }
+};
 
 // ---- register regime: S <= SM, L <= LM, partials in registers ---------------
 
 template <int SM, int LM>
-__device__ __forceinline__ void flush_regs(const Params& p, unsigned (&acc)[SM][LM],
-                                           unsigned long long* blk, int lane) {
-#pragma unroll
-  for (int s = 0; s < SM; ++s) {
-#pragma unroll
-    for (int l = 0; l < LM; ++l) {
-      if (s < p.n_slots && l < p.n_planes) {
-        const unsigned a = acc[s][l];
-        for (int f = p.field_begin[l]; f < p.field_begin[l + 1]; ++f) {
-          const unsigned d = p.field[f];
-          warp_add(blk + s * p.n_fields + (d >> 10), field_of(a, d), lane);
-        }
-      }
-      acc[s][l] = 0u;
-    }
-  }
-}
-
-template <int SM, int LM>
-__device__ __forceinline__ void add_row(unsigned (&acc)[SM][LM], int slot,
-                                        const unsigned (&v)[LM]) {
-#pragma unroll
-  for (int s = 0; s < SM; ++s) {
-    const bool hit = slot == s;
-#pragma unroll
-    for (int l = 0; l < LM; ++l)
-      if (hit) acc[s][l] += v[l];
-  }
-}
-
-// rows [lo, hi), one row per lane per warp step
-template <int SM, int LM>
-__device__ __forceinline__ void scalar_rows_regs(const Params& p, long long lo,
-                                                 long long hi, unsigned (&acc)[SM][LM],
-                                                 int& rows, unsigned long long* blk,
-                                                 long long warp, long long n_warps,
-                                                 int lane) {
-  for (long long base = lo + warp * 32; base < hi; base += n_warps * 32) {
-    const long long i = base + lane;
-    const int slot = i < hi ? __ldg(p.slots + i) : -1;
-    const bool live = (unsigned)slot < (unsigned)p.n_slots;
-    unsigned v[LM];
-#pragma unroll
-    for (int l = 0; l < LM; ++l)
-      v[l] = (live && l < p.n_planes) ? (unsigned)__ldg(p.planes[l] + i) : 0u;
-    if (rows + 1 > p.window) {
-      flush_regs<SM, LM>(p, acc, blk, lane);
-      rows = 0;
-    }
-    rows += 1;
-    add_row<SM, LM>(acc, live ? slot : -1, v);
-  }
-}
-
-template <int SM, int LM>
 __global__ void __launch_bounds__(256) stream_agg_regs(const __grid_constant__ Params p) {
   extern __shared__ unsigned long long blk[];  // [S][n_fields]
-  zero_block_totals(p, blk);
+  const ParamsLayout lay{&p};
+  zero_block_totals(lay, blk);
   __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const long long n_warps = ((long long)gridDim.x * blockDim.x) >> 5;
-  unsigned acc[SM][LM];
-#pragma unroll
-  for (int s = 0; s < SM; ++s)
-#pragma unroll
-    for (int l = 0; l < LM; ++l) acc[s][l] = 0u;
-  int rows = 0;  // rows each lane added since the last flush (warp-uniform)
-
-  long long lo = 0, hi = p.n_rows;
-  if (p.vector) {
-    const long long n_quads = (p.n_rows - p.head) / 4;
-    const int32_t* slots = p.slots + p.head;
-    const long long stride = n_warps * 32 * UNROLL;
-    int4 next[UNROLL];  // the slots of the warp's next step, loaded a step ahead
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const long long q = warp * 32 * UNROLL + u * 32 + lane;
-      next[u] = q < n_quads ? load4(slots + 4 * q) : make_int4(-1, -1, -1, -1);
-    }
-    for (long long t = warp * 32 * UNROLL; t < n_quads; t += stride) {
-      int4 sq[UNROLL];
-      unsigned v[UNROLL][LM][4];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        sq[u] = next[u];
-        const long long q = t + stride + u * 32 + lane;
-        next[u] = q < n_quads ? load4(slots + 4 * q) : make_int4(-1, -1, -1, -1);
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const long long q = t + u * 32 + lane;
-        const bool load = q < n_quads && any_live(sq[u], p.n_slots);
-#pragma unroll
-        for (int l = 0; l < LM; ++l) {
-          int4 x = make_int4(0, 0, 0, 0);
-          if (load && l < p.n_planes) x = load4(p.planes[l] + p.head + 4 * q);
-          v[u][l][0] = (unsigned)x.x;
-          v[u][l][1] = (unsigned)x.y;
-          v[u][l][2] = (unsigned)x.z;
-          v[u][l][3] = (unsigned)x.w;
-        }
-      }
-      if (rows + 4 * UNROLL > p.window) {
-        flush_regs<SM, LM>(p, acc, blk, lane);
-        rows = 0;
-      }
-      rows += 4 * UNROLL;
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int slot = lane_of(sq[u], r);
-#pragma unroll
-          for (int s = 0; s < SM; ++s) {
-            const bool hit = slot == s;
-#pragma unroll
-            for (int l = 0; l < LM; ++l)
-              if (hit) acc[s][l] += v[u][l][r];
-          }
-        }
-      }
-    }
-    // the unaligned head and the ragged tail
-    scalar_rows_regs<SM, LM>(p, 0, p.head, acc, rows, blk, warp, n_warps, lane);
-    lo = p.head + 4 * n_quads;
-  }
-  scalar_rows_regs<SM, LM>(p, lo, hi, acc, rows, blk, warp, n_warps, lane);
-  flush_regs<SM, LM>(p, acc, blk, lane);
+  accumulate_regs<SM, LM, UNROLL>(PlanesSource<LM>{&p}, lay, blk);
   __syncthreads();
-  add_block_totals(p, blk);
+  add_block_totals(lay, blk, p.out);
 }
 
 // ---- shared regime: thread-private uint32 columns [s][l][thread] -----------
-
-__device__ void flush_shared(const Params& p, unsigned* col, unsigned long long* blk,
-                             int lane) {
-  const int n_k = p.n_slots * p.n_planes;
-  for (int k = 0; k < n_k; ++k) {
-    const int s = k / p.n_planes, l = k - s * p.n_planes;
-    unsigned* a = col + (long long)k * blockDim.x;
-    for (int f = p.field_begin[l]; f < p.field_begin[l + 1]; ++f) {
-      const unsigned d = p.field[f];
-      warp_add(blk + s * p.n_fields + (d >> 10), field_of(*a, d), lane);
-    }
-    *a = 0u;
-  }
-}
 
 __device__ __forceinline__ void add_shared(const Params& p, unsigned* col, int slot,
                                            long long i) {
@@ -298,10 +181,10 @@ __device__ __forceinline__ void add_shared(const Params& p, unsigned* col, int s
 
 __global__ void __launch_bounds__(256) stream_agg_shared(const __grid_constant__ Params p) {
   extern __shared__ unsigned long long blk[];  // [S][n_fields], then columns
-  const int n_k = p.n_slots * p.n_planes;
+  const ParamsLayout lay{&p};
   unsigned* col = reinterpret_cast<unsigned*>(blk + p.n_slots * p.n_fields) + threadIdx.x;
-  zero_block_totals(p, blk);
-  for (int k = 0; k < n_k; ++k) col[(long long)k * blockDim.x] = 0u;
+  zero_block_totals(lay, blk);
+  zero_shared_columns(lay, col);
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
@@ -312,7 +195,7 @@ __global__ void __launch_bounds__(256) stream_agg_shared(const __grid_constant__
     for (long long base = lo + warp * 32; base < hi; base += n_warps * 32) {
       const long long i = base + lane;
       if (rows + 1 > p.window) {
-        flush_shared(p, col, blk, lane);
+        flush_shared(lay, col, blk, lane);
         rows = 0;
       }
       rows += 1;
@@ -331,7 +214,7 @@ __global__ void __launch_bounds__(256) stream_agg_shared(const __grid_constant__
         sq[u] = q < n_quads ? load4(p.slots + p.head + 4 * q) : make_int4(-1, -1, -1, -1);
       }
       if (rows + 4 * UNROLL > p.window) {
-        flush_shared(p, col, blk, lane);
+        flush_shared(lay, col, blk, lane);
         rows = 0;
       }
       rows += 4 * UNROLL;
@@ -342,11 +225,7 @@ __global__ void __launch_bounds__(256) stream_agg_shared(const __grid_constant__
         const long long i0 = p.head + 4 * q;
         unsigned* a[4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int s = lane_of(sq[u], r);
-          a[r] = (unsigned)s < (unsigned)p.n_slots
-                     ? col + (long long)s * p.n_planes * blockDim.x : nullptr;
-        }
+        for (int r = 0; r < 4; ++r) a[r] = slot_column(lay, col, lane_of(sq[u], r));
 #pragma unroll 2
         for (int l = 0; l < p.n_planes; ++l) {
           const int4 x = load4(p.planes[l] + i0);
@@ -362,9 +241,9 @@ __global__ void __launch_bounds__(256) stream_agg_shared(const __grid_constant__
     lo = p.head + 4 * n_quads;
   }
   scalar_rows(lo, p.n_rows);
-  flush_shared(p, col, blk, lane);
+  flush_shared(lay, col, blk, lane);
   __syncthreads();
-  add_block_totals(p, blk);
+  add_block_totals(lay, blk, p.out);
 }
 
 // The instantiated register sizes (S max, L max), in the order the host's

@@ -8,13 +8,16 @@ contract, ``(inputs, make_tile_values, n_slots, n_limbs, n_rows,
 plane_fields) -> (S, n_fields) int64``, so the fuse and recombination code
 around it ports line by line.
 
-How it runs: the per-query tile function (filter, projection, key
-packing, limb split) runs as torch code over row chunks of at most
-``CHUNK_ROWS`` rows and yields ``slots`` int32 ``(m,)`` (dead rows = S)
-and L int32 planes ``(m,)``; the kernel then adds every packed field of
-every live row into its slot.  The reference traced the tile function
-into its kernel body; generating per-query CUDA source to fuse it back in
-is the next speed step of the port.
+How it runs: a tile function (filter, projection, key packing, limb
+split) runs as torch code over row chunks of at most ``CHUNK_ROWS`` rows
+and yields ``slots`` int32 ``(m,)`` (dead rows = S) and L int32 planes
+``(m,)``; the kernel (the "planes kernel") then adds every packed field
+of every live row into its slot.  The fused path itself no longer comes
+here: ``ops/cuda/stream_tile.py`` generates one kernel per plan that
+computes the slots and planes in registers around the same accumulator
+(``csrc/stream_agg_core.cuh``), as the reference traces its tile function
+into its kernel body.  ``group_sums`` serves slots and planes that are
+already in memory.
 
 The kernel keeps each lane's (slot, plane) partials in uint32 (in
 registers for the ``REGISTER_SHAPES`` sizes, else in thread-private

@@ -18,23 +18,29 @@ a signed sum of weighted non-negative int32 quantities
 decreasing), and the per-slot plane sums recombine once per (slot, part)
 in int64 — or in two-limb wide decimals past the int64 bound.
 
-The tile builders are torch code over 1-D int32 row chunks.  Every value
-they build stays int32: torch keeps int32 against Python scalars, and the
-interval bounds prove each part, product and packed plane fits int31.
+The row-time half is data: every builder returns a node of a
+``TileProgram`` (``ops/tile_program.py``), the int32 row ops that the
+reference traces into its kernel as closures.  ``_fuse`` assembles the
+program (live mask, key slot, planes) and hands it to
+``ops/cuda/stream_tile.py``, which generates, builds and launches one
+CUDA kernel for it on the card and evaluates it in torch on the CPU.
+Every value stays int32: the interval bounds prove each part, product
+and packed plane fits int31 (partial sums may wrap, as torch's do).
 """
 
 from __future__ import annotations
 
 import bisect
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from ..core.block import Block, Column
 from ..core.dtypes import BOOL, DataType, INT64, TypeKind
 from ..expr.nodes import Call, ColumnRef, Expr, Literal
-from .cuda.stream_agg import stream_group_sums
+from . import tile_program as TP
+from .cuda import stream_tile as ST
 
 # Plan-time layout constants, equal to the reference's so both packages
 # pick the same parts, limbs and packed planes.
@@ -62,7 +68,7 @@ Tile = Dict[str, torch.Tensor]
 class Part:
     """One non-negative int32 per-row quantity with a weight and sign."""
 
-    build: Optional[Callable[[Tile], torch.Tensor]]
+    build: Optional[TP.Node]             # the row value (None: constant)
     shift: int
     sign: int
     lo: int
@@ -90,16 +96,17 @@ def _const_part(c: int, shift: int = 0) -> Part:
     return Part(None, shift, sign, abs(c), abs(c), const=abs(c))
 
 
+def _part_node(p: Part) -> TP.Node:
+    """The part's int32 row value: 0 on rows where a validity input is 0."""
+    v = TP.const(p.const) if p.const is not None else p.build
+    for vc in p.valid_cols:
+        v = TP.where(TP.nz(TP.inp(vc)), v, TP.const(0))
+    return v
+
+
 def _part_value(p: Part, tile: Tile, like: torch.Tensor) -> torch.Tensor:
     """The part's int32 values for a chunk shaped like ``like``."""
-    if p.const is not None:
-        v = torch.full(like.shape, p.const, dtype=torch.int32,
-                       device=like.device)
-    else:
-        v = p.build(tile)
-    for vc in p.valid_cols:
-        v = torch.where(tile[vc] != 0, v, torch.zeros_like(v))
-    return v
+    return TP.evaluate_nodes([_part_node(p)], tile, (), like)[0]
 
 
 def _eff_lo(p: Part) -> int:
@@ -123,20 +130,12 @@ def _materialize(parts: List[Part]) -> List[Part]:
     )
     if lo < 0 or hi >= _I31:
         return parts
-    plist = list(parts)
-
-    def build(tile, _plist=plist, _smin=smin):
-        like = _any_input(tile)
-        acc = None
-        for q in _plist:
-            v = _part_value(q, tile, like)
-            sh = q.shift - _smin
-            if sh:
-                v = v << sh
-            if q.sign < 0:
-                v = -v
-            acc = v if acc is None else acc + v
-        return acc
+    build = None
+    for q in parts:
+        v = TP.shl(_part_node(q), q.shift - smin)
+        if q.sign < 0:
+            v = TP.neg(v)
+        build = v if build is None else TP.add(build, v)
 
     valid = tuple(sorted({vc for p in parts for vc in p.valid_cols}))
     if all(p.const is not None for p in parts) and not valid:
@@ -148,13 +147,8 @@ def _materialize(parts: List[Part]) -> List[Part]:
 def _split_part(p: Part) -> List[Part]:
     """value = lo16 + hi<<16 — both halves non-negative int32."""
     assert p.const is None
-
-    def blo(tile, _b=p.build):
-        return _b(tile) & _MUL_MASK
-
-    def bhi(tile, _b=p.build):
-        return _b(tile) >> MUL_SPLIT_BITS
-
+    blo = TP.band(p.build, _MUL_MASK)
+    bhi = TP.shr(p.build, MUL_SPLIT_BITS)
     return [
         Part(blo, p.shift, p.sign, 0, min(p.hi, _MUL_MASK),
              valid_cols=p.valid_cols),
@@ -187,11 +181,7 @@ def _mul_const(parts: List[Part], c: int) -> List[Part]:
                                 q.shift + shift_extra)
                 )
                 continue
-            if c == 1:
-                nb = q.build
-            else:
-                def nb(tile, _b=q.build, _c=c):
-                    return _b(tile) * _c
+            nb = q.build if c == 1 else TP.mul(q.build, TP.const(c))
             out.append(Part(nb, q.shift + shift_extra, q.sign * sign,
                             _eff_lo(q) * c, q.hi * c,
                             valid_cols=q.valid_cols))
@@ -226,12 +216,8 @@ def _mul_parts(a: List[Part], b: List[Part]) -> List[Part]:
                 for qb in cb:
                     if qa.hi * qb.hi >= _I31:
                         raise Ineligible("product too wide after one split")
-
-                    def nb(tile, _a=qa.build, _b=qb.build):
-                        return _a(tile) * _b(tile)
-
                     out.append(Part(
-                        nb, qa.shift + qb.shift, qa.sign * qb.sign,
+                        TP.mul(qa.build, qb.build), qa.shift + qb.shift, qa.sign * qb.sign,
                         _eff_lo(qa) * _eff_lo(qb), qa.hi * qb.hi,
                         valid_cols=tuple(sorted(
                             set(qa.valid_cols) | set(qb.valid_cols))),
@@ -272,22 +258,12 @@ def _term_column(name: str, col: Column) -> Term:
         raise Ineligible("negative value range")
     valid = (name + "__v",) if col.validity is not None else ()
     if hi < _I31:
-        def build(tile, _n=name):
-            return tile[_n]
-
-        return Term([Part(build, 0, 1, lo, hi, valid_cols=valid)], col.dtype)
+        return Term([Part(TP.inp(name), 0, 1, lo, hi, valid_cols=valid)], col.dtype)
     if hi >= 1 << 62:
         raise Ineligible("column range too wide")
-
-    def build_lo(tile, _n=name):
-        return tile[_n + "__w0"]
-
-    def build_hi(tile, _n=name):
-        return tile[_n + "__w1"]
-
     return Term([
-        Part(build_lo, 0, 1, 0, min(hi, _I31 - 1), valid_cols=valid),
-        Part(build_hi, 31, 1, lo >> 31, hi >> 31, valid_cols=valid),
+        Part(TP.inp(name + "__w0"), 0, 1, 0, min(hi, _I31 - 1), valid_cols=valid),
+        Part(TP.inp(name + "__w1"), 31, 1, lo >> 31, hi >> 31, valid_cols=valid),
     ], col.dtype)
 
 
@@ -394,48 +370,47 @@ def compile_term(expr: Expr, base: Block) -> Term:
 # predicate compiler (Selection conditions inside the tile function)
 # ---------------------------------------------------------------------------
 
+# the engine's compare functions -> tile program compares
 _CMPS = {
-    "equals": lambda a, b: a == b,
-    "not_equals": lambda a, b: a != b,
-    "less": lambda a, b: a < b,
-    "less_or_equals": lambda a, b: a <= b,
-    "greater": lambda a, b: a > b,
-    "greater_or_equals": lambda a, b: a >= b,
+    "equals": "eq",
+    "not_equals": "ne",
+    "less": "lt",
+    "less_or_equals": "le",
+    "greater": "gt",
+    "greater_or_equals": "ge",
 }
 
 
-def _any_input(tile: Tile) -> torch.Tensor:
-    return next(iter(tile.values()))
-
-
-def _valid_and(m: torch.Tensor, tile: Tile, vnames) -> torch.Tensor:
+def _valid_and(m: TP.Node, vnames) -> TP.Node:
     for vn in vnames:  # NULL rows are never selected
-        m = m & (tile[vn] != 0)
+        m = TP.land(m, TP.nz(TP.inp(vn)))
     return m
 
 
-def compile_pred(expr: Expr, base: Block) -> Callable:
-    """cond -> tile predicate (NULL condition == not selected)."""
+def _cmp(func: str, v: TP.Node, c: TP.Node, flip: bool) -> TP.Node:
+    """``v <op> c``, or ``c <op> v`` where the literal was on the left."""
+    return TP.cmp(_CMPS[func], c, v) if flip else TP.cmp(_CMPS[func], v, c)
+
+
+def compile_pred(expr: Expr, base: Block, pb: TP.ProgramBuilder) -> TP.Node:
+    """cond -> the row's bool (NULL condition == not selected).  Literal
+    values become launch parameters of ``pb``."""
     if isinstance(expr, Call) and expr.func in ("and", "or"):
-        fns = [compile_pred(a, base) for a in expr.args]
-        op = torch.logical_and if expr.func == "and" else torch.logical_or
-
-        def run(tile, _fns=fns, _op=op):
-            acc = _fns[0](tile)
-            for f in _fns[1:]:
-                acc = _op(acc, f(tile))
-            return acc
-
-        return run
+        op = TP.land if expr.func == "and" else TP.lor
+        acc = compile_pred(expr.args[0], base, pb)
+        for a in expr.args[1:]:
+            acc = op(acc, compile_pred(a, base, pb))
+        return acc
     if isinstance(expr, Call) and expr.func == "not":
-        inner = compile_pred(expr.args[0], base)
-        return lambda tile, _f=inner: torch.logical_not(_f(tile))
+        return TP.lnot(compile_pred(expr.args[0], base, pb))
 
     if isinstance(expr, Call) and expr.func == "in":
         colref = expr.args[0]
         if not isinstance(colref, ColumnRef):
             raise Ineligible("IN needs a column")
         col = base[colref.name]
+        if not col.dtype.is_string and _col_interval(col)[1] >= _I31:
+            raise Ineligible("IN over a column wider than int31")
         codes: List[int] = []
         for a in expr.args[1:]:
             if not isinstance(a, Literal):
@@ -444,17 +419,9 @@ def compile_pred(expr: Expr, base: Block) -> Callable:
             if c is not None and c[1]:  # member / exact
                 codes.append(c[0])
         name = colref.name
-        vset = tuple(codes)
         vnames = (name + "__v",) if col.validity is not None else ()
-
-        def run(tile, _n=name, _vs=vset, _v=vnames):
-            d = tile[_n]
-            acc = torch.zeros(d.shape, dtype=torch.bool, device=d.device)
-            for v in _vs:
-                acc = acc | (d == v)
-            return _valid_and(acc, tile, _v)
-
-        return run
+        members = [pb.param(v) for v in codes]
+        return _valid_and(TP.isin(TP.inp(name), members), vnames)
 
     if isinstance(expr, Call) and expr.func in _CMPS:
         a, b = expr.args
@@ -465,7 +432,7 @@ def compile_pred(expr: Expr, base: Block) -> Callable:
         if not isinstance(b, Literal):
             raise Ineligible("comparison needs a literal side")
         if isinstance(a, ColumnRef) and base[a.name].dtype.is_string:
-            return _string_cmp_pred(expr.func, a.name, base[a.name], b.value, flip)
+            return _string_cmp_pred(expr.func, a.name, base[a.name], b.value, flip, pb)
         term = compile_term(a, base)
         parts = _materialize(term.parts)
         if len(parts) != 1 or parts[0].const is not None:
@@ -496,25 +463,9 @@ def compile_pred(expr: Expr, base: Block) -> Callable:
                 res = above if not flip else not above
             else:
                 res = (not above) if not flip else above
-            vnames0 = p.valid_cols
-
-            def run_static(tile, _r=bool(res), _v=vnames0):
-                like = _any_input(tile)
-                m = torch.full(like.shape, _r, dtype=torch.bool,
-                               device=like.device)
-                return _valid_and(m, tile, _v)
-
-            return run_static
-        op = _CMPS[expr.func]
-        vnames = p.valid_cols
-
-        def run(tile, _p=p, _c=int(cval), _op=op, _flip=flip, _v=vnames):
-            v = _p.build(tile) if _p.const is None else _part_value(
-                _p, tile, _any_input(tile))
-            m = _op(_c, v) if _flip else _op(v, _c)
-            return _valid_and(m, tile, _v)
-
-        return run
+            return _valid_and(TP.bconst(res), p.valid_cols)
+        v = p.build if p.const is None else _part_node(p)
+        return _valid_and(_cmp(expr.func, v, pb.param(cval), flip), p.valid_cols)
     raise Ineligible(f"unsupported predicate {expr!r}")
 
 
@@ -528,25 +479,23 @@ def _encode_cmp_literal(value, col: Column):
     return (lo, member)
 
 
-def _string_cmp_pred(op: str, name: str, col: Column, value, flip: bool):
+def _string_cmp_pred(op: str, name: str, col: Column, value, flip: bool,
+                     pb: TP.ProgramBuilder) -> TP.Node:
+    """A compare of dictionary codes.  A literal outside the dictionary sits
+    between two codes: compare doubled codes against 2 * rank - 1 (whether
+    it is a member is structure; its rank is a launch parameter)."""
     if not isinstance(value, str):
         raise Ineligible("string compare needs a string literal")
     d = col.dictionary or ()
     lo = bisect.bisect_left(d, value)
     member = lo < len(d) and d[lo] == value
-    cmpfn = _CMPS[op]
     vnames = (name + "__v",) if col.validity is not None else ()
-
-    def run(tile, _n=name, _lo=lo, _m=member, _op=cmpfn, _flip=flip, _v=vnames):
-        data = tile[_n]
-        if _m:
-            a, c = data, _lo
-        else:
-            a, c = data * 2, 2 * _lo - 1
-        m = _op(c, a) if _flip else _op(a, c)
-        return _valid_and(m, tile, _v)
-
-    return run
+    data = TP.inp(name)
+    if member:
+        a, c = data, pb.param(lo)
+    else:
+        a, c = TP.mul(data, TP.const(2)), pb.param(2 * lo - 1)
+    return _valid_and(_cmp(op, a, c, flip), vnames)
 
 
 # ---------------------------------------------------------------------------
@@ -612,8 +561,7 @@ def try_fuse_stream_agg(node, tables: Dict[str, Block]):
 
 def _fuse(node, tables):
     from .aggregate import (
-        AggregateResult, agg_result_dtype, key_domain_size, pack_keys_direct,
-        unpack_keys_direct,
+        AggregateResult, agg_result_dtype, key_domain_size, unpack_keys_direct,
     )
 
     if node.mode is not None:
@@ -660,7 +608,8 @@ def _fuse(node, tables):
                 continue  # count(col) needs only the validity input
             agg_terms[a.arg] = compile_term(e, base)
 
-    pred_fns = [compile_pred(c, base) for c in conds]
+    pb = TP.ProgramBuilder()
+    pred_nodes = [compile_pred(c, base, pb) for c in conds]
 
     # global limb plan: limbs for every part of every term + live count +
     # per-nullable-arg non-null counters
@@ -719,14 +668,10 @@ def _fuse(node, tables):
             nn_part_idx[a.arg] = live_count_idx
         elif a.arg not in nn_part_idx:
             nn_part_idx[a.arg] = len(part_list)
-
-            def build(tile, _vs=base_validity):
-                acc = None
-                for vn in _vs:
-                    m = (tile[vn] != 0).to(torch.int32)
-                    acc = m if acc is None else acc * m
-                return acc
-
+            build = None
+            for vn in base_validity:
+                m = TP.b2i(TP.nz(TP.inp(vn)))
+                build = m if build is None else TP.mul(build, m)
             part_list.append(Part(build, 0, 1, 0, 1))
 
     # limb layout with plane packing: each part splits into
@@ -803,82 +748,82 @@ def _fuse(node, tables):
     if base.sel is not None:
         _want("__sel")
 
-    # input staging: the tile function reads int32 (or bool) inputs only.
-    # Narrow columns (range fits int31) read their int32 shadow; wide
-    # columns split into two non-negative int32 words.
+    # kernel inputs: each column at its own storage.  The program reads
+    # int32 tile values: an int32 column (a ``narrow32`` shadow, dictionary
+    # codes, dates) as it is, a bool (validity, ``sel``) as 0/1, a narrow
+    # column without a shadow as its int64 narrowed, a wide column as two
+    # non-negative words ``__w0`` (low 31 bits) and ``__w1`` (value >> 31).
     inputs: Dict[str, torch.Tensor] = {}
+
+    def bind(key: str, arr: torch.Tensor, conversion: str = "id"):
+        storage = TP.STORAGE_OF_DTYPE.get(arr.dtype)
+        if storage is None:
+            raise Ineligible(f"input {key} of dtype {arr.dtype}")
+        name = key if conversion == "id" else key[:-4]
+        inputs[name] = arr
+        pb.bind(key, name, storage, conversion)
+
     for nm in input_names:
         if nm == "__sel":
-            inputs[nm] = base.sel
+            bind(nm, base.sel)
         elif nm.endswith("__v"):
-            inputs[nm] = base[nm[:-3]].validity
+            bind(nm, base[nm[:-3]].validity)
         else:
             col = base[nm]
             if col.dtype.is_string or col.dtype.kind is TypeKind.BOOL:
-                inputs[nm] = (col.narrow32 if col.narrow32 is not None
-                              else col.data)
+                bind(nm, col.narrow32 if col.narrow32 is not None else col.data)
                 continue
             lo, hi = _col_interval(col)
             if lo < 0:
                 raise Ineligible("negative value range")
             if hi < _I31:
-                inputs[nm] = (col.narrow32 if col.narrow32 is not None
-                              else col.data.to(torch.int32))
+                bind(nm, col.narrow32 if col.narrow32 is not None else col.data)
             elif hi < 1 << 62:
-                inputs[nm + "__w0"] = (col.data & (_I31 - 1)).to(torch.int32)
-                inputs[nm + "__w1"] = (col.data >> 31).to(torch.int32)
+                bind(nm + "__w0", col.data, "w0")
+                bind(nm + "__w1", col.data, "w1")
             else:
                 raise Ineligible("column range too wide")
 
-    key_meta = [(kn, base[kn].dtype, base[kn].dictionary,
-                 base[kn].validity is not None) for kn in key_names]
     S = domain
     pl_ = part_list
     pop_ = piece_of_part
-    playout_ = plane_layout
-    preds = pred_fns
 
-    def make_tile_values(tile: Tile, in_bounds: torch.Tensor):
-        live = in_bounds
-        if "__sel" in tile:
-            live = live & (tile["__sel"] != 0)
-        for pf in preds:
-            live = live & pf(tile)
-        # slot packing (mixed radix, mirrors pack_keys_direct)
-        if key_meta:
-            cols = []
-            for kn, dt, dic, has_v in key_meta:
-                v = tile[kn]
-                val = (tile[kn + "__v"] != 0) if has_v else None
-                cols.append(Column(v, val, dt, dic))
-            slot, dom = pack_keys_direct(cols)
-            assert dom == S
-            slot = slot.to(torch.int32)
-        else:
-            slot = torch.zeros(in_bounds.shape, dtype=torch.int32,
-                               device=in_bounds.device)
-        slot = torch.where(live, slot, torch.full_like(slot, S))
-        pvals: List = [None] * sum(len(x) for x in pop_)
-        for p, pidx in zip(pl_, pop_):
-            v = _part_value(p, tile, in_bounds)
-            if len(pidx) == 1:
-                pvals[pidx[0]] = v
-                continue
-            for j, gi in enumerate(pidx):
-                piece = v >> (ACC_LIMB_BITS * j)
-                if j + 1 < len(pidx):
-                    piece = piece & _ACC_MASK
-                pvals[gi] = piece
-        limbs: List[torch.Tensor] = []
-        for plx in playout_:
-            accv = None
-            for gi, off, _cap in plx:
-                x = pvals[gi]
-                if off:
-                    x = x << off
-                accv = x if accv is None else accv + x
-            limbs.append(accv)
-        return slot, limbs
+    # the row program: live mask, key slot (mixed radix, mirrors
+    # pack_keys_direct: a NULL key is 0, a nullable key adds 1), planes
+    live = TP.bconst(True)
+    if base.sel is not None:
+        live = TP.land(live, TP.nz(TP.inp("__sel")))
+    for pn in pred_nodes:
+        live = TP.land(live, pn)
+    key_slot = TP.const(0)
+    for i, kn in enumerate(key_names):
+        c = base[kn]
+        v = TP.inp(kn)
+        if c.validity is not None:
+            v = TP.where(TP.nz(TP.inp(kn + "__v")), TP.add(v, TP.const(1)), TP.const(0))
+        elif c.dtype.nullable:
+            v = TP.add(v, TP.const(1))
+        key_slot = v if i == 0 else TP.add(
+            TP.mul(key_slot, TP.const(key_domain_size(c))), v)
+    pvals: List = [None] * len(pieces)
+    for p, pidx in zip(pl_, pop_):
+        v = _part_node(p)
+        if len(pidx) == 1:
+            pvals[pidx[0]] = v
+            continue
+        for j, gi in enumerate(pidx):
+            piece = TP.shr(v, ACC_LIMB_BITS * j)
+            if j + 1 < len(pidx):
+                piece = TP.band(piece, _ACC_MASK)
+            pvals[gi] = piece
+    planes: List[TP.Node] = []
+    for plx in plane_layout:
+        accv = None
+        for gi, off, _cap in plx:
+            x = TP.shl(pvals[gi], off)
+            accv = x if accv is None else TP.add(accv, x)
+        planes.append(accv)
+    program = pb.build(live, key_slot, planes, S)
 
     FUSE_STATS["count"] += 1
     FUSE_STATS["slots"] = S
@@ -886,9 +831,8 @@ def _fuse(node, tables):
     FUSE_STATS["fields"] = len(pieces)
     FUSE_STATS["plane_fields"] = plane_fields
     FUSE_STATS["field_hi"] = piece_hi
-    sums = stream_group_sums(inputs, make_tile_values, S, n_limbs,
-                             n_rows=base.capacity, plane_fields=plane_fields,
-                             headroom=growth)
+    sums = ST.fused_group_sums(inputs, program, S, n_limbs, base.capacity,
+                               plane_fields, growth, base.device)
     dev = sums.device
 
     # ---- recombination (S x L values) ----
