@@ -35,6 +35,17 @@ random data from seed 0:
   over the eight-table catalog: decimal division and wide compares,
   LIKE/IN, min/max and count_distinct, hashed two-column join keys, left
   outer and cross joins and a CTE, with no kernel, as the CPU dispatch
+  predicts;
+- the analytic plans of ``tiflash_tpu_torch/bench/analytics.py`` on the
+  lineitem catalog (with its seven ship-year partitions) and the
+  eight-table catalog, each sent through ``plan/serde.py``'s
+  ``dumps``/``loads`` first: a ROLLUP report (an Expand to 23,997,752
+  rows, GROUPING() and a rank window), a window report (rank, running,
+  lag, ROWS and RANGE frames over 5,999,438 rows), the statistical, bit,
+  quantile, group_concat and sketch aggregates, float sums by the stream
+  method over 1.5M orders, Q1 over a Union of the partitions, Q13 as a
+  right and as a full outer join, and NOT IN with and without a NULL in
+  its subquery (``analytics_phase``), with no kernel, as the CPU dispatch
   predicts.
 
 Each kernel is held against its plain version (``torch.equal``) on edge
@@ -49,8 +60,10 @@ times the design alternatives of the kernels.
 
 Every result is checked bit-exact against the port's own CPU run (but
 the 100M-row top-N and Q1 at SF10, whose CPU runs would take most of the
-script's time) and an independent numpy computation (in the eight-table
-phase, one per new mechanism: Q2, Q9, Q13, Q14, Q16 and Q18-300).  Any
+script's time; the analytic plans' float columns hold within
+``ANALYTIC_FLOAT_REL``) and an independent numpy computation (in the
+eight-table phase, one per new mechanism: Q2, Q9, Q13, Q14, Q16 and
+Q18-300; every analytic plan).  Any
 failure exits non-zero.  The last line of standard output is the JSON
 device record; the line before it lists the kernels with their launch
 counts, errors and times.
@@ -71,6 +84,7 @@ SF = 1
 SEED = 0
 WARM_RUNS = 10
 KERNEL_REPS = 20
+SF10_REPS = 5          # Q1 at SF10: its plain version takes about 0.1 s a run
 Q1_CUTOFF = "1998-09-02"
 Q6_RANGE = ("1994-01-01", "1995-01-01")
 Q7_RANGE = ("1995-01-01", "1996-12-31")
@@ -1006,7 +1020,7 @@ def tile_bound_bytes(TP, call) -> dict:
             "whole": sum(_sector_bytes(rows, size[k]) for k in mask + agg) + out}
 
 
-def fused_yardsticks(SA, ST, TP, call, flush) -> dict:
+def fused_yardsticks(SA, ST, TP, call, flush, reps: int = KERNEL_REPS) -> dict:
     """At a query's captured ``fused_group_sums`` call: the generated
     kernel held against its plain version (``torch.equal``), then timed
     beside it (``evaluate`` then ``group_sums_plain``), the unfused path
@@ -1025,20 +1039,20 @@ def fused_yardsticks(SA, ST, TP, call, flush) -> dict:
 
     err = fused_equals_plain(ST, call)
     p_ms, k_ms = time_turns(lambda: ST.fused_group_sums_plain(*call),
-                            lambda: ST.fused_group_sums(*call), KERNEL_REPS, flush)
+                            lambda: ST.fused_group_sums(*call), reps, flush)
 
     def unfused():
         slots, planes = TP.evaluate(program, TP.stage(program, inputs))
         SA.group_sums(slots, planes, fields, n_slots, zeros(), h)
 
-    un_ms = time_ms(unfused, KERNEL_REPS, flush)
+    un_ms = time_ms(unfused, reps, flush)
     slots, planes = TP.evaluate(program, TP.stage(program, inputs))
     live = (slots >= 0) & (slots < n_slots)
     idx = torch.where(live, slots, n_slots).long()
     vals = torch.stack([(planes[pl].long() >> off) & ((1 << cap) - 1)
                         for pl, off, cap, _ in sorted(fields, key=lambda r: r[3])], 1)
     acc = torch.zeros((n_slots + 1, len(fields)), dtype=torch.int64, device="cuda")
-    lib_ms = time_ms(lambda: acc.index_add_(0, idx, vals), KERNEL_REPS, flush)
+    lib_ms = time_ms(lambda: acc.index_add_(0, idx, vals), reps, flush)
     nb = tile_bound_bytes(TP, call)
     bound_ms = nb["bound"] / HBM_BYTES_PER_S * 1e3
     design_ms = nb["design"] / HBM_BYTES_PER_S * 1e3
@@ -1662,9 +1676,11 @@ def sf10_q1_phase(card: str, flush) -> dict:
     t0 = time.perf_counter()
     ST.kernel_source(program, SA.field_table(pf, n_limbs), h)
     src_s = time.perf_counter() - t0
-    err = fused_equals_plain(ST, call)
-    k_ms = time_ms(lambda: ST.fused_group_sums(*call), KERNEL_REPS, flush)
-    n_bytes = tile_bound_bytes(TP, call)["bound"]
+    # kernel == plain, then kernel, plain, unfused and one index_add_ at
+    # the query's own call
+    y = fused_yardsticks(SA, ST, TP, call, flush, SF10_REPS)
+    y.pop("planes_call")
+    err, k_ms, n_bytes = y["max_abs_err"], y["ms"], y["bound_bytes"]
     plan = q1_plan()
     q_ms = time_ms(lambda: run_query(plan, gpu), WARM_RUNS)
     bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -1676,12 +1692,494 @@ def sf10_q1_phase(card: str, flush) -> dict:
     print(f"  q1 sf{SF10} stream_tile: kernel == plain (exact), kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({n_bytes} B at 3.35 TB/s), share of bound {bound_ms / k_ms:.1%}; run_query "
           f"median {q_ms:.3f} ms over {WARM_RUNS} warm runs [{card}]")
+    print("  " + fused_line(f"q1 sf{SF10}", y, card))
     del gpu, call, out
     return {"rows": n_rows, "ms": k_ms, "bound_ms": bound_ms, "run_query_ms": q_ms,
+            "plain_ms": y["plain_ms"], "library_ms": y["library_ms"],
+            "unfused_ms": y["unfused_ms"],
             "source_generation_s": src_s, "new_builds": new_builds, "max_abs_err": err}
 
 
+# ---- the analytic slice: numpy versions and the card phase -------------------
+
+ANALYTIC_FLOAT_REL = 1e-12   # float columns: card vs CPU run, and vs numpy
+ANALYTIC_FLOATS = {"stats_grouped": ("var_price", "sd_price"),
+                   "stats_stream": ("sum_price", "avg_price")}
+KMV_REL = 0.05               # the KMV estimate vs the exact count (3 std errors)
+
+
+def analytic_arrays(cat) -> dict:
+    """Host numpy copies of the lineitem columns the analytic plans read,
+    plus their dictionaries."""
+    t = cat["lineitem"].block
+    out = {n: t[n].data.numpy() for n in (
+        "l_orderkey", "l_linenumber", "l_partkey", "l_suppkey", "l_quantity",
+        "l_extendedprice", "l_discount", "l_tax", "l_shipdate", "l_shipmode",
+        "l_returnflag", "l_linestatus")}
+    for n in ("l_shipmode", "l_returnflag", "l_linestatus"):
+        out[n + "_dict"] = t[n].dictionary
+    out["rf_dict"], out["ls_dict"] = out["l_returnflag_dict"], out["l_linestatus_dict"]
+    return out
+
+
+def _group_starts(codes):
+    """(order that sorts ``codes`` stably, start of each run in it, the
+    run's code)."""
+    import numpy as np
+
+    order = np.argsort(codes, kind="stable")
+    s = codes[order]
+    starts = np.nonzero(np.r_[True, s[1:] != s[:-1]])[0]
+    return order, starts, s[starts]
+
+
+def numpy_rollup(a: dict) -> dict:
+    """``rollup_report`` over host arrays: Q1's sums per ROLLUP level with
+    int64 run sums (every total is below 2^63 at SF1), the level, each
+    level's charge rank, in the plan's order."""
+    import numpy as np
+
+    live = a["l_shipdate"] <= _days(Q1_CUTOFF)
+    keys = [a[k][live].astype(np.int64) for k in ("l_shipmode", "l_returnflag",
+                                                  "l_linestatus")]
+    dicts = [a[k + "_dict"] for k in ("l_shipmode", "l_returnflag", "l_linestatus")]
+    qty, ext = a["l_quantity"][live], a["l_extendedprice"][live]
+    disc, tax = a["l_discount"][live], a["l_tax"][live]
+    disc_price = ext * (100 - disc)
+    charge = disc_price * (100 + tax)
+    vals = (qty, ext, disc_price, charge, disc)
+    rows = []
+    for n_keys in (3, 2, 1, 0):
+        code = np.zeros(len(qty), dtype=np.int64)
+        for k in keys[:n_keys]:
+            code = code * 16 + k
+        order, starts, _ = _group_starts(code)
+        sums = [np.add.reduceat(v[order].astype(np.int64), starts) for v in vals]
+        counts = np.diff(np.r_[starts, len(order)])
+        level = 3 - n_keys
+        groups = []
+        for g, st in enumerate(starts):
+            row0 = order[st]
+            kv = [dicts[i][keys[i][row0]] if i < n_keys else None for i in range(3)]
+            sq, se, sd, sc, sdisc = (int(s[g]) for s in sums)
+            n = int(counts[g])
+            groups.append(kv + [level, sq, se, sd, sc, _half_up_div(sq * 10 ** 4, n),
+                                _half_up_div(se * 10 ** 4, n),
+                                _half_up_div(sdisc * 10 ** 4, n), n])
+        charges = sorted((g[7] for g in groups), reverse=True)
+        for g in groups:
+            g.append(1 + sum(c > g[7] for c in charges))
+        rows += groups
+    rows.sort(key=lambda r: (r[3], r[-1]) + tuple((v is not None, v or "") for v in r[:3]))
+    names = ["l_shipmode", "l_returnflag", "l_linestatus", "level", "sum_qty",
+             "sum_base_price", "sum_disc_price", "sum_charge", "avg_qty", "avg_price",
+             "avg_disc", "count_order", "charge_rank"]
+    return {n: [r[i] for r in rows] for i, n in enumerate(names)}
+
+
+def _run_bounds(part_starts_mask):
+    """Per row of a sorted array: its run's first and last positions."""
+    import numpy as np
+
+    n = len(part_starts_mask)
+    pos = np.arange(n)
+    start = np.maximum.accumulate(np.where(part_starts_mask, pos, 0))
+    ends = np.r_[np.nonzero(part_starts_mask)[0][1:] - 1, n - 1]
+    end = ends[np.cumsum(part_starts_mask) - 1]
+    return start, end
+
+
+def numpy_window_report(a: dict, top: int = 3) -> dict:
+    """``window_report`` over host arrays: ranks by sorting, running and
+    moving values by cumulative sums and shifts inside each order, the
+    7-day RANGE counts by binary search per ship mode."""
+    import numpy as np
+
+    ok, ln, sk = a["l_orderkey"], a["l_linenumber"], a["l_suppkey"]
+    ext, qty, sd, sm = (a["l_extendedprice"], a["l_quantity"], a["l_shipdate"],
+                        a["l_shipmode"])
+    n = len(ok)
+    pos = np.arange(n)
+    # rank() over (partition by l_suppkey order by l_extendedprice desc)
+    o = np.lexsort((-ext, sk))
+    new_part = np.r_[True, sk[o][1:] != sk[o][:-1]]
+    new_peer = new_part | np.r_[True, ext[o][1:] != ext[o][:-1]]
+    rank = np.empty(n, dtype=np.int64)
+    rank[o] = (np.maximum.accumulate(np.where(new_peer, pos, 0))
+               - np.maximum.accumulate(np.where(new_part, pos, 0)) + 1)
+    # per order by l_linenumber
+    o = np.lexsort((ln, ok))
+    start, end = _run_bounds(np.r_[True, ok[o][1:] != ok[o][:-1]])
+    q, e, d = qty[o], ext[o], sd[o]
+    cq = np.cumsum(q)
+    run = np.empty(n, dtype=np.int64)
+    run[o] = cq - np.where(start > 0, cq[start - 1], 0)
+    prev = np.empty(n, dtype=np.int64)
+    prev[o] = np.where(pos > start, d[pos - 1], -1)
+    lo, hi = np.maximum(pos - 2, start), np.minimum(pos + 2, end)
+    ce = np.cumsum(e)
+    s = ce[hi] - np.where(lo > 0, ce[lo - 1], 0)
+    cnt = hi - lo + 1
+    num = s * 10 ** 4
+    qd = num // cnt
+    avg = qd + (2 * (num - qd * cnt) >= cnt)      # half up (all positive)
+    mn = np.full(n, np.iinfo(np.int64).max)
+    mx = np.full(n, np.iinfo(np.int64).min)
+    for k in range(-2, 3):
+        src = np.clip(pos + k, 0, n - 1)
+        inside = (pos + k >= lo) & (pos + k <= hi)
+        mn = np.where(inside, np.minimum(mn, e[src]), mn)
+        mx = np.where(inside, np.maximum(mx, e[src]), mx)
+    mov = {}
+    for name, v in (("mov_avg", avg), ("mov_min", mn), ("mov_max", mx)):
+        mov[name] = np.empty(n, dtype=np.int64)
+        mov[name][o] = v
+    # per l_shipmode by l_shipdate, RANGE 7 PRECEDING .. 7 FOLLOWING
+    o = np.lexsort((sd, sm))
+    key = sm[o].astype(np.int64) * 100_000 + sd[o]
+    lo3 = np.searchsorted(key, key - 7, "left")
+    hi3 = np.searchsorted(key, key + 7, "right")
+    cq3 = np.r_[0, np.cumsum(qty[o])]
+    ships, qsum = np.empty(n, dtype=np.int64), np.empty(n, dtype=np.int64)
+    ships[o] = hi3 - lo3
+    qsum[o] = cq3[hi3] - cq3[lo3]
+    keep = np.nonzero(rank <= top)[0]
+    keep = keep[np.lexsort((ln[keep], ok[keep], rank[keep], sk[keep]))]
+    out = {"l_orderkey": ok[keep], "l_linenumber": ln[keep], "l_suppkey": sk[keep],
+           "l_extendedprice": ext[keep], "l_quantity": qty[keep],
+           "l_shipdate": sd[keep],
+           "l_shipmode": [a["l_shipmode_dict"][c] for c in sm[keep]],
+           "price_rank": rank[keep], "run_qty": run[keep],
+           "prev_ship": [None if v < 0 else int(v) for v in prev[keep]],
+           **{k: v[keep] for k, v in mov.items()},
+           "ships_15d": ships[keep], "qty_15d": qsum[keep]}
+    return {k: v if isinstance(v, list) else v.tolist() for k, v in out.items()}
+
+
+def _rel_close(got, want) -> float:
+    """The largest relative distance of two float lists (NULLs equal);
+    inf when NULL-ness differs."""
+    worst = 0.0
+    for x, y in zip(got, want):
+        if (x is None) != (y is None):
+            return float("inf")
+        if y is not None and x != y:
+            worst = max(worst, abs(x - y) / abs(y))
+    return worst if len(got) == len(want) else float("inf")
+
+
+def numpy_stats_grouped(a: dict) -> dict:
+    """``stats_grouped`` over host arrays: per (ship mode, return flag)
+    the sample variance and population deviation of the price as a double
+    (numpy's two-pass ``var``/``std``), an XOR of part keys, the median
+    quantity (the element at floor(0.5 (n - 1)) of the sorted values),
+    the sorted distinct line statuses joined by ';', distinct parts."""
+    import numpy as np
+
+    code = a["l_shipmode"].astype(np.int64) * 16 + a["l_returnflag"]
+    order, starts, codes = _group_starts(code)
+    bounds = np.r_[starts, len(order)]
+    x = a["l_extendedprice"].astype(np.float64) / 100.0
+    out = {k: [] for k in ("l_shipmode", "l_returnflag", "var_price", "sd_price",
+                           "xor_part", "median_qty", "statuses", "parts")}
+    for g, c in enumerate(codes):
+        rows = order[bounds[g]:bounds[g + 1]]
+        out["l_shipmode"].append(a["l_shipmode_dict"][c // 16])
+        out["l_returnflag"].append(a["l_returnflag_dict"][c % 16])
+        out["var_price"].append(float(np.var(x[rows], ddof=1)))
+        out["sd_price"].append(float(np.std(x[rows])))
+        out["xor_part"].append(int(np.bitwise_xor.reduce(a["l_partkey"][rows])))
+        q = np.sort(a["l_quantity"][rows])
+        out["median_qty"].append(int(q[int(np.floor(0.5 * (len(q) - 1)))]))
+        st = sorted({a["l_linestatus_dict"][v] for v in np.unique(a["l_linestatus"][rows])})
+        out["statuses"].append(";".join(st))
+        out["parts"].append(int(len(np.unique(a["l_partkey"][rows]))))
+    return out
+
+
+def numpy_stats_first(a: dict) -> dict:
+    """``stats_first`` over host arrays: per (ship mode, return flag) the
+    earliest ship date (the first row in ship-date order), AND of part
+    keys, OR of supplier keys, line count."""
+    import numpy as np
+
+    code = a["l_shipmode"].astype(np.int64) * 16 + a["l_returnflag"]
+    order, starts, codes = _group_starts(code)
+    bounds = np.r_[starts, len(order)]
+    out = {k: [] for k in ("l_shipmode", "l_returnflag", "first_ship", "and_part",
+                           "or_supp", "n_lines")}
+    for g, c in enumerate(codes):
+        rows = order[bounds[g]:bounds[g + 1]]
+        out["l_shipmode"].append(a["l_shipmode_dict"][c // 16])
+        out["l_returnflag"].append(a["l_returnflag_dict"][c % 16])
+        out["first_ship"].append(int(a["l_shipdate"][rows].min()))
+        out["and_part"].append(int(np.bitwise_and.reduce(a["l_partkey"][rows])))
+        out["or_supp"].append(int(np.bitwise_or.reduce(a["l_suppkey"][rows])))
+        out["n_lines"].append(len(rows))
+    return out
+
+
+def numpy_stats_stream(a: dict) -> dict:
+    """``stats_stream`` over host arrays: per order the sum, average and
+    count of the price as a double, in order-key order."""
+    import numpy as np
+
+    order, starts, keys = _group_starts(a["l_orderkey"])
+    x = a["l_extendedprice"][order].astype(np.float64) / 100.0
+    s = np.add.reduceat(x, starts)
+    n = np.diff(np.r_[starts, len(order)])
+    return {"l_orderkey": keys, "sum_price": s, "avg_price": s / n, "n_lines": n}
+
+
+def numpy_not_in(a8: dict, with_null: bool) -> dict:
+    """``not_in``: lines whose supplier is not in the subquery (count,
+    total quantity); with a NULL in the subquery, none."""
+    import numpy as np
+
+    from tiflash_tpu_torch.bench.analytics import NOT_IN_MAX_SUPPKEY, NOT_IN_NULL_KEY
+
+    sub = a8["s_suppkey"][a8["s_suppkey"] <= NOT_IN_MAX_SUPPKEY]
+    if with_null and NOT_IN_NULL_KEY in sub:
+        return {"n_lines": [0], "qty": [None]}
+    keep = ~np.isin(a8["l_suppkey"], sub)
+    return {"n_lines": [int(keep.sum())],
+            "qty": [_pysum(a8["l_quantity"][keep]) if keep.any() else None]}
+
+
+def _block_arrays(block) -> dict:
+    """Live rows of a result block as host arrays (values, validity)."""
+    sel = block.sel_mask().cpu()
+    return {n: (c.data.cpu()[sel].numpy(),
+                None if c.validity is None else c.validity.cpu()[sel].numpy())
+            for n, c in zip(block.names, block.columns)}
+
+
+def check_stream_numpy(block, want: dict) -> float:
+    """``stats_stream``'s result against numpy: keys and counts exact, the
+    float sums within ``ANALYTIC_FLOAT_REL``.  Returns the largest
+    relative distance."""
+    import numpy as np
+
+    got = _block_arrays(block)
+    order = np.argsort(got["l_orderkey"][0], kind="stable")
+    if not (np.array_equal(got["l_orderkey"][0][order], want["l_orderkey"])
+            and np.array_equal(got["n_lines"][0][order], want["n_lines"])):
+        raise AssertionError("stats_stream: keys or counts != numpy")
+    worst = 0.0
+    for name in ("sum_price", "avg_price"):
+        g, w = got[name][0][order], want[name]
+        worst = max(worst, float(np.max(np.abs(g - w) / np.abs(w))))
+    if worst > ANALYTIC_FLOAT_REL:
+        raise AssertionError(f"stats_stream: {worst} relative from numpy")
+    return worst
+
+
+def block_summary(block) -> dict:
+    """A result block as plain host data: names, column types and the live
+    rows' (values, validity) arrays."""
+    return {"names": tuple(block.names),
+            "dtypes": [repr(c.dtype) for c in block.columns],
+            "arrays": _block_arrays(block)}
+
+
+def analytic_same(name: str, got, want: dict) -> float:
+    """The card's result block of one analytic plan against the CPU run's
+    ``block_summary``: the same names, types and live rows, exact but for
+    the plan's float columns, which hold within ``ANALYTIC_FLOAT_REL``.
+    Returns the largest relative distance of those (0.0 when bit-exact)."""
+    import numpy as np
+
+    if got.names != want["names"] or [repr(c.dtype) for c in got.columns] != \
+            want["dtypes"]:
+        raise AssertionError(f"{name}: schema differs between the card and the CPU")
+    g, w = _block_arrays(got), want["arrays"]
+    worst = 0.0
+    for col in w:
+        (gd, gv), (wd, wv) = g[col], w[col]
+        if (gv is None) != (wv is None) or (gv is not None and not np.array_equal(gv, wv)):
+            raise AssertionError(f"{name}.{col}: NULLs differ between card and CPU")
+        valid = np.ones(len(wd), dtype=bool) if wv is None else wv
+        if col in ANALYTIC_FLOATS.get(name, ()):
+            diff = np.abs(gd[valid] - wd[valid]) / np.abs(wd[valid])
+            worst = max(worst, float(diff.max()) if diff.size else 0.0)
+        elif not np.array_equal(gd[valid], wd[valid]) or gd.shape != wd.shape:
+            raise AssertionError(f"{name}.{col}: card != CPU run")
+    if worst > ANALYTIC_FLOAT_REL:
+        raise AssertionError(f"{name}: floats {worst} relative from the CPU run")
+    return worst
+
+
+def analytics_numpy_check(name: str, out, li: dict, a8: dict) -> str:
+    """Hold one analytic plan's CPU result to its numpy version; returns
+    what was checked."""
+    if name == "stats_stream":
+        worst = check_stream_numpy(out, numpy_stats_stream(li))
+        return f"numpy (floats within {worst:.3g} relative)"
+    if name == "stats_kmv":
+        import numpy as np
+
+        got = out.to_pylists()
+        exact = len(np.unique(li["l_orderkey"]))
+        est = got["approx_orders"][0]
+        if got["n_lines"] != [len(li["l_orderkey"])] or abs(est - exact) > KMV_REL * exact:
+            raise AssertionError(f"stats_kmv: estimate {est}, exact {exact}")
+        return f"numpy (estimate {est} of {exact} distinct, {est / exact - 1:+.4%})"
+    want = {"rollup_report": lambda: numpy_rollup(li),
+            "window_report": lambda: numpy_window_report(li),
+            "stats_grouped": lambda: numpy_stats_grouped(li),
+            "stats_first": lambda: numpy_stats_first(li),
+            "partitioned_q1": lambda: numpy_q1(li),
+            "q13_right": lambda: numpy_q13(a8), "q13_full": lambda: numpy_q13(a8),
+            "not_in": lambda: numpy_not_in(a8, False),
+            "not_in_null": lambda: numpy_not_in(a8, True)}[name]()
+    got = out.to_pylists()
+    floats = ANALYTIC_FLOATS.get(name, ())
+    if list(got) != list(want):
+        raise AssertionError(f"{name}: columns {list(got)} != numpy's {list(want)}")
+    worst = 0.0
+    for col in want:
+        if col in floats:
+            worst = max(worst, _rel_close(got[col], want[col]))
+        elif got[col] != want[col]:
+            raise AssertionError(f"{name}.{col}: port CPU run != numpy\n"
+                                 f"{got[col][:8]}\n{want[col][:8]}")
+    if worst > ANALYTIC_FLOAT_REL:
+        raise AssertionError(f"{name}: floats {worst} relative from numpy")
+    return "numpy" + (f" (floats within {worst:.3g} relative)" if floats else "")
+
+
+ANALYTIC_CPU_THREADS = 2   # the worker's torch threads, beside the main process
+
+
+def analytics_cpu_runs(sf: float = SF) -> dict:
+    """The analytic plans' CPU side, run in a worker process while the
+    card phases run: the catalogs from the seed (the same tables the main
+    process makes), each plan through ``serde.dumps``/``loads`` and
+    ``run_query`` on the CPU with a spy on the direct_agg kernel's branch
+    and the fused path, its result held to numpy.  Returns, per plan, the
+    result's ``block_summary``, retries, predicted launches (branch calls,
+    fused runs), what numpy checked, rows and seconds."""
+    import torch
+
+    from tiflash_tpu_torch.bench.analytics import ANALYTICS, lineitem_tables
+    from tiflash_tpu_torch.ops import aggregate as TA
+    from tiflash_tpu_torch.ops import stream_fuse as SF_
+    from tiflash_tpu_torch.plan import serde
+    from tiflash_tpu_torch.runtime.executor import run_query
+    from tiflash_tpu_torch.storage.tpch import generate_tpch
+
+    torch.set_num_threads(ANALYTIC_CPU_THREADS)
+    cat = generate_tpch(sf=sf, seed=SEED, tables=["lineitem"])
+    cat8 = generate_tpch(sf=sf, seed=SEED)
+    li, a8 = analytic_arrays(cat), tpch8_arrays(cat8)
+    tables = {"lineitem": lineitem_tables(cat.blocks("cpu")), "eight": cat8.blocks("cpu")}
+    out = {}
+    for name, (fn, c) in ANALYTICS.items():
+        t0 = time.perf_counter()
+        calls = []
+        real = TA._accumulate_direct_kernel
+        TA._accumulate_direct_kernel = lambda *a: calls.append(1) or real(*a)
+        f0 = SF_.FUSE_STATS["count"]
+        try:
+            res, summary = run_query(serde.loads(serde.dumps(fn())), tables[c])
+        finally:
+            TA._accumulate_direct_kernel = real
+        out[name] = {"summary": block_summary(res), "retries": summary.retries,
+                     "predicted": (len(calls), SF_.FUSE_STATS["count"] - f0),
+                     "checked": analytics_numpy_check(name, res, li, a8),
+                     "rows": summary.result_rows,
+                     "seconds": time.perf_counter() - t0}
+    return out
+
+
+def start_analytics_cpu_runs():
+    """A one-worker process pool (spawned: the worker touches no card)
+    running ``analytics_cpu_runs``; returns (pool, pending result).  The
+    caller terminates the pool."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    return pool, pool.apply_async(analytics_cpu_runs)
+
+
+def analytics_phase(card: str, cat, cat8, cpu: dict) -> dict:
+    """The analytic plans of ``bench/analytics.py`` at SF1 on the card:
+    each through ``serde.dumps``/``loads`` and ``run_query``, with the
+    launch counts set to 0 before and read after, equal to its CPU run
+    (``cpu``, from ``analytics_cpu_runs``; floats within
+    ``ANALYTIC_FLOAT_REL``), with the CPU run's retries and the launches
+    its dispatch predicts.  Prints each plan's ``run_query`` median of 10
+    warm runs, device busy time, idle share, device events and kernels.
+    Returns {name: direct_agg launches}."""
+    import torch
+
+    from tiflash_tpu_torch.bench.analytics import ANALYTICS, lineitem_tables
+    from tiflash_tpu_torch.ops import stream_fuse as SF_
+    from tiflash_tpu_torch.ops.cuda import direct_agg as DA, stream_agg as SA
+    from tiflash_tpu_torch.ops.cuda import stream_tile as ST
+    from tiflash_tpu_torch.plan import serde
+    from tiflash_tpu_torch.runtime.executor import run_query
+
+    for name, r in cpu.items():
+        print(f"{name} sf{SF} cpu run (worker process): {r['rows']} rows, "
+              f"{r['retries']} retries, equal to {r['checked']} ({r['seconds']:.1f} s)")
+    plans = {name: serde.loads(serde.dumps(fn())) for name, (fn, _) in ANALYTICS.items()}
+    gpu_tables = {"lineitem": lineitem_tables(cat.blocks("cuda")),
+                  "eight": cat8.blocks("cuda")}
+    torch.cuda.synchronize()
+    launches = {}
+    for name, (_, c) in ANALYTICS.items():
+        SA.LAUNCHES = DA.LAUNCHES = ST.LAUNCHES = 0
+        f0 = SF_.FUSE_STATS["count"]
+        out, summary = run_query(plans[name], gpu_tables[c])
+        torch.cuda.synchronize()
+        launches[name] = DA.LAUNCHES
+        want_branch, want_fused = cpu[name]["predicted"]
+        if ((DA.LAUNCHES > 0) != (want_branch > 0) or SA.LAUNCHES or ST.LAUNCHES
+                or SF_.FUSE_STATS["count"] != f0 + want_fused):
+            raise AssertionError(f"{name}: direct_agg {DA.LAUNCHES}, stream_tile "
+                                 f"{ST.LAUNCHES}, planes {SA.LAUNCHES} launches; the CPU "
+                                 f"dispatch predicts {cpu[name]['predicted']}")
+        if summary.device != "cuda:0" or summary.retries != cpu[name]["retries"]:
+            raise AssertionError(f"{name}: ran on {summary.device} with "
+                                 f"{summary.retries} retries (CPU {cpu[name]['retries']})")
+        worst = analytic_same(name, out, cpu[name]["summary"])
+        exact = "bit-exact" if worst == 0.0 else f"floats within {worst:.3g} relative"
+        tables, plan = gpu_tables[c], plans[name]
+        q_ms = time_ms(lambda: run_query(plan, tables), WARM_RUNS)
+        busy, events, by_name = device_profile(lambda: run_query(plan, tables))
+        busy_txt = ("device busy not measured (the trace held no device time)"
+                    if busy is None else f"device busy {busy:.4f} ms in {events} "
+                    f"device events, idle share {1 - busy / q_ms:.1%}")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        print(f"{name} sf{SF} on cuda: {summary.result_rows} rows, {summary.retries} "
+              f"retries, {exact} vs port CPU run; kernels launched: direct_agg "
+              f"{DA.LAUNCHES}, stream_tile {ST.LAUNCHES}, stream_agg {SA.LAUNCHES}; "
+              f"run_query median {q_ms:.3f} ms over {WARM_RUNS} warm runs; {busy_txt}; "
+              f"top device ops {[(k[:72], round(v, 4)) for k, v in top]} [{card}]")
+    return launches
+
+
 def main() -> int:
+    """Checks the card, starts the analytic plans' CPU runs in a worker
+    process (``analytics_cpu_runs``), runs every phase (``_main``), and
+    stops the worker whatever happens."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
+        return 2
+    import tiflash_tpu_torch  # noqa: F401  (outside the repo this fails here)
+
+    pool, analytic_cpu = start_analytics_cpu_runs()
+    try:
+        return _main(analytic_cpu)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def _main(analytic_cpu) -> int:
     import torch
 
     # ---- 1. device ---------------------------------------------------------
@@ -2024,6 +2522,12 @@ def main() -> int:
                {"q8": cpu8["q8"], "q12": cpu8["q12"]})
     del gpu8
 
+    # ---- 9. the analytic plans at SF1, serialized, on both catalogs ---------------
+    t0 = time.perf_counter()
+    cpu_runs = analytic_cpu.get()
+    print(f"analytic plans' CPU runs ready ({time.perf_counter() - t0:.1f} s of waiting)")
+    analytic_launches = analytics_phase(card, cat, cat8, cpu_runs)
+
     q1y = stream_y["q1"]
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "share_of_bound")
 
@@ -2055,6 +2559,7 @@ def main() -> int:
              q6={k: stream_y["q6"][k] for k in keys if k in stream_y["q6"]}),
         dict(entry("direct_agg", "tiflash_tpu/ops/pallas/direct_agg.py:116",
                    q7_launches, direct_err, direct_y),
+             analytics_launches=analytic_launches,
              sector_bound_ms=direct_y["sector_bound_ms"],
              ship_month={"launches": ship["launches"],
                          "max_abs_err": ship["max_abs_err"],

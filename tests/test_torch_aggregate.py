@@ -147,20 +147,39 @@ def test_sort_method_matches_reference(keys, num_slots):
 
 
 def test_unported_aggregates_raise():
+    """quantile, var_pop and a float sum by the stream method raised
+    before this slice of the port; each now equals the reference's.
+    quantile picks a row (exact); var_pop's moments and the float sum
+    add in another order, within 1e-12 relative."""
     import dataclasses as dc
 
-    _, tb = _block(1, 4)
-    # min/max and count_distinct are ported (tests/test_torch_functions_more.py)
-    with pytest.raises(NotImplementedError):
-        t_agg(tb, ["g"], [TAgg("quantile", "y", "m")])
-    with pytest.raises(NotImplementedError):
-        t_agg(tb, ["y"], [TAgg("var_pop", "x", "d")])
-    # keys the block is clustered on take the stream method, whose float
-    # sums come with the functions slice
+    jb, tb = _block(1, 4)
+    _compare(jb, tb, ["g"], [("quantile", "y", "m", None, 0.5),
+                             ("quantile", "x", "m2", None, 0.25)])
+    jw = j_agg(jb, ["y"], [JAgg("var_pop", "x", "d")]).block
+    tw = t_agg(tb, ["y"], [TAgg("var_pop", "x", "d")]).block
+    assert_rows_close(tw.to_pylists(), jw.to_pylists(), rel=1e-12)
+    # keys the block is clustered on take the stream method
     import torch
+    from tiflash_tpu.core.dtypes import FLOAT64 as JF64
     from tiflash_tpu_torch.core.dtypes import FLOAT64
 
-    tf = tb.with_column("f", dc.replace(tb["y"], data=tb["y"].data.to(torch.float64),
-                                        dtype=FLOAT64, stats=None))
-    with pytest.raises(NotImplementedError, match="stream method"):
-        t_agg(dc.replace(tf, clustered_by=("y",)), ["y"], [TAgg("sum", "f", "s")])
+    jf = jb.with_column("f", dc.replace(jb["y"], data=jb["y"].data.astype(jnp.float64)
+                                        / 7.0, dtype=JF64, stats=None))
+    tf = blocks_from_numpy(export_blocks({"t": jf}), "cpu")["t"]
+    assert tf["f"].dtype == FLOAT64 and tf["f"].data.dtype == torch.float64
+    js = j_agg(dc.replace(jf, clustered_by=("y",)), ["y"], [JAgg("sum", "f", "s")]).block
+    ts = t_agg(dc.replace(tf, clustered_by=("y",)), ["y"], [TAgg("sum", "f", "s")]).block
+    assert_rows_close(ts.to_pylists(), js.to_pylists(), rel=1e-12)
+
+
+def assert_rows_close(got: dict, want: dict, rel: float) -> None:
+    """Equal column dicts of live rows, floats within ``rel`` relative."""
+    assert list(got) == list(want)
+    for name in want:
+        assert len(got[name]) == len(want[name]), name
+        for g, w in zip(got[name], want[name]):
+            if isinstance(w, float) and g is not None:
+                assert abs(g - w) <= rel * abs(w), (name, g, w)
+            else:
+                assert g == w, (name, g, w)

@@ -2,9 +2,10 @@
 package's on seeded random plan trees over random tables with NULLs.
 
 The vocabulary is the reference fuzzer's (``tests/test_fuzz_plans.py``):
-Selection, Projection, Join, Aggregation, TopN and Limit over the same
-schema, less ``bit_or`` (it comes with a later slice of the port) and
-the right and full outer joins (not ported), plus the functions slice's
+Selection, Projection, Join (every kind the reference's fuzzer draws,
+right and full outer since the analytic slice), Aggregation (with
+``bit_or`` since that slice), TopN and Limit over the same schema, plus
+the functions slice's
 scalar functions: ``if``, ``negate``, ``case_when``, ``coalesce``, casts
 and date parts over a DATE column.  Every tree builds
 once for each package from one seed.  Results compare as sorted rows:
@@ -131,7 +132,7 @@ def _rand_aggs(rng, N, has_x):
     A = N.A.AggDesc
     pool = [A("sum", "v", "sv"), A("count", None, "c"), A("min", "b", "mb"),
             A("max", "v", "mx"), A("avg", "f", "af"),
-            A("count_distinct", "b", "cd"), A("sum", "d", "sd"),
+            A("count_distinct", "b", "cd"), A("bit_or", "v", "bo"), A("sum", "d", "sd"),
             A("min", "d", "md"), A("avg", "d", "ad")]
     if has_x:
         pool.append(A("sum", "x", "sx"))
@@ -152,10 +153,11 @@ def build_plan(seed: int, N: Ns):
         has_x = True
     joined = False
     if rng.random() < 0.5:
-        kind = str(rng.choice(["inner", "left_outer", "semi", "anti"]))
+        kind = str(rng.choice(["inner", "left_outer", "semi", "anti",
+                               "right_outer", "full_outer"]))
         node = P.Join(kind=kind, probe_keys=["a"], build_keys=["k"],
                       probe=node, build=P.TableScan("r"), output_capacity=4000)
-        joined = kind in ("inner", "left_outer")
+        joined = kind in ("inner", "left_outer", "right_outer", "full_outer")
     shape = str(rng.choice(["agg", "topn", "limit", "plain"]))
     if shape == "agg":
         keys = [str(rng.choice(["s", "b"] if not joined else ["s", "b", "w"]))]

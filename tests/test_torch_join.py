@@ -1,4 +1,4 @@
-"""The inner, semi and anti hash joins: the PyTorch port's
+"""The hash joins of every kind: the PyTorch port's
 ``ops/join.py`` and the Join node of its compiler and runner, against the
 JAX package's on the same blocks made with numpy from a seed (tolerance
 zero: keys, payloads and flags are integers).
@@ -7,8 +7,10 @@ Covers key normalization (int, multi-column and cross-dictionary string
 keys), the unique-build and N:M probes with NULL keys, dead rows on both
 sides and a real key of 2^63-1, semi and anti joins on both probe paths
 (a plain anti join keeps NULL-key probe rows; dead rows stay dead), the
-overflow of a build promised unique that is not, and the runner's retry
-on the general path.
+right/full outer joins' unmatched build tail, NOT IN (null-aware anti)
+with NULL build keys and an empty build side, EXISTS/IN in the select
+list (left outer semi), the overflow of a build promised unique that is
+not, and the runner's retry on the general path.
 """
 
 import jax.numpy as jnp
@@ -284,19 +286,47 @@ def test_semi_and_anti_join_nodes_match_reference(kind):
     assert ts.plan_text == js.plan_text and ts.retries == js.retries == 0
 
 
+def _ref_join_with_tail(j, kind, capacity):
+    import jax
+
+    def run(probe, build):
+        out, x = JJ.hash_join_with_tail(probe, build, ["pk"], ["bk"], kind,
+                                        capacity)
+        return out, x["overflow"]
+
+    return jax.jit(run)(j["probe"], j["build"])
+
+
 @pytest.mark.parametrize("kind", ["left_outer_semi_null_aware", "right_outer",
                                   "full_outer", "anti_null_aware", "left_outer_semi"])
 def test_other_join_kinds_raise(kind):
-    _, t = _tables(seed=7)
-    with pytest.raises(NotImplementedError, match="later|slice"):
-        TJ.hash_join_with_tail(t["probe"], t["build"], ["pk"], ["bk"], kind, None)
+    """The right, full, null-aware and left-outer-semi kinds (they raised
+    before this slice of the port) equal the reference's, rows, order,
+    types and overflow, on the unique and the N:M paths: with NULL build
+    keys, with an empty build side (every build row dead), and with a
+    NULL-free build side."""
+    j, t = _tables(seed=7)
+    empty = {"probe": j["probe"], "build": j["build"].with_sel(
+        jnp.zeros(j["build"].capacity, dtype=bool))}
+    bk = j["build"]["bk"]
+    no_null = {"probe": j["probe"], "build": j["build"].with_column(
+        "bk", type(bk)(bk.data, None, bk.dtype.with_nullable(False)))}
+    for jt in (j, empty, no_null):
+        tt = _port(jt)
+        for cap in (None, 700):
+            want, w_ovf = _ref_join_with_tail(jt, kind, cap)
+            got, x = TJ.hash_join_with_tail(tt["probe"], tt["build"], ["pk"], ["bk"],
+                                            kind, cap)
+            assert _rows(got) == _rows(want), (kind, cap)
+            assert got.names == want.names
+            assert int(x["overflow"]) == int(w_ovf)
 
 
 def test_runtime_filter_raises_in_the_compiler():
     _, t = _tables(seed=7)
     plan = _plan(TP, True)
     plan.rf_id = "rf0"
-    with pytest.raises(NotImplementedError, match="runtime filter"):
+    with pytest.raises(NotImplementedError, match="runtime filter.*distribution slice"):
         t_compile(plan)(t)
 
 

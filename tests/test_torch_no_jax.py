@@ -33,8 +33,14 @@ for f in ("spec_phase", "sweep_phase", "compare_sweep", "cpu_run_with_spy",
 for m in ("ops.join", "ops.merge", "ops.cuda.direct_agg", "plan.rewrite",
           "ops.hashing", "runtime.errors", "bench.tpch_spec", "expr.regexp_json",
           "expr.duration", "bench.strings", "ops.tile_program", "ops.cuda.stream_tile",
-          "testing.fuse_cases"):
+          "testing.fuse_cases", "ops.segments", "ops.window", "ops.expand",
+          "ops.sketch", "exchange.skew", "plan.serde", "bench.analytics"):
     assert "tiflash_tpu_torch." + m in names, m
+for f in ("analytics_phase", "numpy_rollup", "numpy_window_report",
+          "numpy_stats_grouped", "numpy_stats_first", "numpy_stats_stream",
+          "numpy_not_in", "analytics_cpu_runs", "start_analytics_cpu_runs",
+          "block_summary", "analytic_same"):
+    assert callable(getattr(chip_smoke, f)), f
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "tiflash_tpu."))
              or m == "tiflash_tpu")

@@ -172,3 +172,55 @@ def test_flagged_positions_matches_reference(seed, n, num_out, frac):
     assert np.array_equal(got.numpy(), want)
     k = min(int(flags.sum()), num_out)
     assert np.array_equal(got.numpy()[:k], np.flatnonzero(flags)[:k])
+
+
+def _analytic_cases():
+    from tiflash_tpu_torch.bench import analytics as A
+
+    return sorted(A.ANALYTICS)
+
+
+@pytest.mark.parametrize("name", _analytic_cases())
+def test_rewritten_analytic_tree_matches_reference(name):
+    """The analytic plans (Window, Expand, Union, the outer and null-aware
+    joins, the new aggregates): ``prune_columns`` stays conservative under
+    Window, Expand and Union, and ``eager_aggregation`` declines the outer
+    joins, as in the reference; the rewritten trees are the reference's,
+    node by node (build payloads included)."""
+    from test_torch_tpch_spec import to_reference
+    from tiflash_tpu_torch.bench import analytics as A
+
+    plan = A.ANALYTICS[name][0]()
+    want = j_prune(j_eager(to_reference(plan)))
+    got = t_prune(t_eager(A.ANALYTICS[name][0]()))
+    assert _shape(got) == _shape(want)
+    assert got.pretty() == want.pretty()
+    assert _shape(t_prune(t_eager(got))) == _shape(got)
+
+
+def test_eager_aggregation_pushes_new_aggregates_as_the_reference_does():
+    """A group_concat and a quantile over a unique-build inner join are
+    pushed below it (the reference's rule reads only where the inputs
+    come from), and an Expand or a Window above the join stops nothing
+    below it."""
+    from test_torch_tpch_spec import to_reference
+    from tiflash_tpu_torch.expr.nodes import col
+    from tiflash_tpu_torch.ops.aggregate import AggDesc
+    from tiflash_tpu_torch.ops.sort import SortKey
+    from tiflash_tpu_torch.ops.window import WindowDesc
+
+    def plan():
+        join = TP.Join("inner", ["l_orderkey"], ["o_orderkey"],
+                       TP.TableScan("lineitem", ["l_orderkey", "l_shipmode", "l_quantity"]),
+                       TP.TableScan("orders", ["o_orderkey", "o_orderdate"]),
+                       unique_build=True)
+        agg = TP.Aggregation(["l_orderkey"], [
+            AggDesc("group_concat", "l_shipmode", "modes", distinct=True),
+            AggDesc("quantile", "l_quantity", "q", param=0.5)], join)
+        win = TP.Window([], [SortKey("l_orderkey")], [WindowDesc("row_number", "rn")], agg)
+        return TP.Expand([["l_orderkey"], []], win)
+
+    want = j_prune(j_eager(to_reference(plan())))
+    got = t_prune(t_eager(plan()))
+    assert _shape(got) == _shape(want)
+    assert any(type(n).__name__ == "Projection" for n in _dfs(got))

@@ -85,3 +85,44 @@ def test_lexsort_is_stable_and_lexicographic():
     # bool keys are ordered False < True
     perm = lexsort_stable([torch.tensor([True, False, True, False])])
     assert perm.tolist() == [1, 3, 0, 2]
+
+
+FLOAT_EDGES = [float("nan"), -0.0, 0.0, float("inf"), float("-inf"), -1.5, 2.25]
+
+
+def _float_edge_tables(seed, with_sel):
+    """``fe``: a nullable double holding NaN, -0.0, 0.0, +-inf and two
+    finite values, with many ties; ``a`` nullable int; ``rid`` the row."""
+    rng = np.random.default_rng(seed)
+    blk = Block.from_dict({
+        "fe": column_from_numpy(rng.choice(FLOAT_EDGES, N), FLOAT64.with_nullable(),
+                                validity=rng.random(N) > 0.15),
+        "a": column_from_numpy(rng.integers(-2, 3, N), INT64.with_nullable(),
+                               validity=rng.random(N) > 0.2),
+        "rid": column_from_numpy(np.arange(N), INT64),
+    })
+    if with_sel:
+        import jax.numpy as jnp
+
+        blk = blk.with_sel(jnp.asarray(rng.random(N) > 0.25))
+    return {"t": blk}, blocks_from_numpy(export_blocks({"t": blk}), "cpu")
+
+
+@pytest.mark.parametrize("with_sel", [False, True], ids=["all_live", "sel"])
+@pytest.mark.parametrize("keys", [[("fe",)], [("fe", True)], [("fe", True, True)],
+                                  [("fe", False, False)], [("a",), ("fe", True)],
+                                  [("fe",), ("a", True)]],
+                         ids=lambda k: "-".join("_".join(map(str, x)) for x in k))
+def test_sort_float_edge_keys_match_reference(keys, with_sel):
+    """NaN, -0.0, 0.0 and +-inf keys (ROADMAP, section C item 3): the
+    reference orders -0.0 and 0.0 as equal (ties by position) and every
+    NaN last in both directions; the port's rows come out in the same
+    order (``rid``), with the same selection."""
+    j_tab, t_tab = _float_edge_tables(seed=len(keys) * 5 + int(with_sel), with_sel=with_sel)
+    j_out = j_sort(j_tab["t"], [JKey(*k) for k in keys])
+    t_out = t_sort(t_tab["t"], [TKey(*k) for k in keys])
+    assert t_out.to_pylists()["rid"] == j_out.to_pylists()["rid"]
+    assert torch.equal(t_out.sel, torch.as_tensor(np.array(j_out.sel)))
+    fe = t_out.to_pylists()["fe"]
+    assert any(v is not None and v != v for v in fe)  # NaN present
+    assert any(v == 0.0 and str(v) == "-0.0" for v in fe if v is not None)

@@ -165,3 +165,24 @@ def test_topn_100m_block_and_plan_at_a_small_size():
     assert summary.result_rows == 100
     # the same seed draws the same keys
     assert torch.equal(TQ.topn_100m_block(n, device="cpu")["k"].data, tb["k"].data)
+
+
+@pytest.mark.parametrize("limit", [50, 1500, 3000], ids=["le128", "le2048", "gt2048"])
+@pytest.mark.parametrize("desc", [False, True], ids=["asc", "desc"])
+def test_top_n_float_edge_keys_match_reference(limit, desc):
+    """NaN, -0.0, 0.0 and +-inf keys (ROADMAP, section C item 3), alone
+    and before an int key: -0.0 ties with 0.0 (by position), NaN sorts
+    last either way, as in the reference."""
+    rng = np.random.default_rng(limit + desc)
+    edges = [float("nan"), -0.0, 0.0, float("inf"), float("-inf"), 3.5, -7.25]
+    jb = Block.from_dict({
+        "fe": column_from_numpy(rng.choice(edges, N), FLOAT64),
+        "a": column_from_numpy(rng.integers(-50, 50, N), INT64),
+        "v": column_from_numpy(np.arange(N), INT64),
+    }).with_sel(jnp.asarray(rng.random(N) < 0.8))
+    tb = blocks_from_numpy(export_blocks({"t": jb}), "cpu")["t"]
+    for spec in ([("fe", desc, None)], [("fe", desc, None), ("a", not desc, None)]):
+        jo = JS.top_n(jb, _keys(JS.SortKey, spec), limit)
+        to = TS.top_n(tb, _keys(TS.SortKey, spec), limit)
+        assert to.to_pylists()["v"] == jo.to_pylists()["v"]
+        assert np.array_equal(to.sel.numpy(), np.asarray(jo.sel))

@@ -41,6 +41,10 @@ class Column:
                    values; consumers mask them.
     ``domain``     exact host-known value set (sorted tuple).
     ``ndv``        proven upper bound on the number of distinct values.
+    ``concat_sep`` set on a ``group_concat`` result: ``data`` is then
+                   (n, max_items) dictionary codes and ``validity`` the
+                   matching item mask; a row decodes to its valid items
+                   joined with this separator (NULL when it has none).
     """
 
     data: torch.Tensor
@@ -51,6 +55,7 @@ class Column:
     narrow32: Optional[torch.Tensor] = None
     domain: Optional[Tuple[int, ...]] = None
     ndv: Optional[int] = None
+    concat_sep: Optional[str] = None
 
     @property
     def capacity(self) -> int:
@@ -67,13 +72,18 @@ class Column:
         """New data, same metadata; ``stats`` must be re-supplied."""
         v = self.validity if validity == "_keep" else validity
         return Column(data=data, validity=v, dtype=self.dtype,
-                      dictionary=self.dictionary, stats=stats)
+                      dictionary=self.dictionary, stats=stats,
+                      concat_sep=self.concat_sep)
 
     def take(self, indices: torch.Tensor, fill_invalid: bool = False) -> "Column":
         """Gather rows.  With ``fill_invalid`` negative indices give NULL
         rows.  A gather only permutes or subsets values, so stats hold."""
         safe = indices.clamp(min=0).long()
-        data = self.data[safe]
+        if self.data.dtype == torch.uint64:
+            # CUDA torch cannot index uint64: gather the int64 bit patterns
+            data = self.data.view(torch.int64)[safe].view(torch.uint64)
+        else:
+            data = self.data[safe]
         validity = None if self.validity is None else self.validity[safe]
         if fill_invalid:
             ok = indices >= 0
@@ -92,10 +102,22 @@ class Column:
                 data = data[sel]
                 valid = None if valid is None else valid[sel]
             return wide_to_host_ints(data, valid)
+        if data.ndim == 2 and self.concat_sep is not None:
+            # a group_concat column: each row's valid dictionary items
+            valid = (np.ones(data.shape, dtype=bool) if self.validity is None
+                     else self.validity.cpu().numpy())
+            if sel is not None:
+                data = data[sel]
+                valid = valid[sel]
+            out = []
+            for row, ok_row in zip(data.tolist(), valid.tolist()):
+                items = [self.dictionary[c] for c, ok in zip(row, ok_row) if ok]
+                out.append(self.concat_sep.join(items) if items else None)
+            return out
         if data.ndim == 2:
             raise NotImplementedError(
-                "2-D columns other than wide decimals come with the "
-                "group_concat and vector slices of the port")
+                "2-D columns other than wide decimals and group_concat "
+                "results come with the vector slice of the port")
         valid = (np.ones(len(data), dtype=bool) if self.validity is None
                  else self.validity.cpu().numpy())
         if sel is not None:

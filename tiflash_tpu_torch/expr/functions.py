@@ -45,8 +45,9 @@ What is not a port of the reference's code but of its semantics:
   float remainder is inexact; ``torch.fmod`` is exact C fmod.  Denormal
   results differ: the reference flushes them to zero.
 
-The ``vec_*`` functions come with ``ops/vector.py`` and the grouping
-functions with the Expand node (``DEFERRED``).
+The ``vec_*`` functions come with ``ops/vector.py`` (``DEFERRED``).  The
+grouping functions read the Expand node's ``groupingID`` column
+(``ops/expand.py``).
 """
 
 from __future__ import annotations
@@ -87,12 +88,9 @@ DIV_PRECISION_INCREMENT = 4  # TiDB div_precision_increment default
 _VECTOR_NAMES = ("vec_l2_distance", "vec_l1_distance",
                  "vec_negative_inner_product", "vec_cosine_distance",
                  "vec_l2_norm", "vec_dims")
-_GROUPING_NAMES = ("grouping", "grouping_bit_and", "grouping_cmp")
-
 # registered by the reference, not yet by the port: name -> where it comes
 DEFERRED: Dict[str, str] = {
     **{n: "comes with ops/vector.py and the Vector type" for n in _VECTOR_NAMES},
-    **{n: "comes with ops/expand.py and the Expand node" for n in _GROUPING_NAMES},
 }
 
 
@@ -2237,6 +2235,51 @@ def _nullif():
         neq = ~(eq.data & eq.valid_mask())
         validity = neq if a.validity is None else (a.validity & neq)
         return Column(a.data, validity, out, a.dictionary)
+
+    return infer, evaluate
+
+
+def _register_grouping(name: str, per_mark):
+    """GROUPING() over the Expand node's gid column (the reference's
+    ``FunctionsGrouping.h`` ModeBitAnd / ModeNumericCmp).  The arguments
+    after the gid column are the per-column grouping marks; the result
+    packs one bit per mark (1 = the column is aggregated, NULL-filled)."""
+
+    def factory():
+        def infer(ts):
+            return DataType(TypeKind.INT64, False)
+
+        def evaluate(cols, out):
+            gid = cols[0].data.to(torch.int64)
+            res = torch.zeros_like(gid)
+            for c in cols[1:]:
+                res = res * 2 + per_mark(gid, c.data.to(torch.int64)).to(torch.int64)
+            return Column(res, None, out)
+
+        return infer, evaluate
+
+    register(name)(factory)
+
+
+_register_grouping("grouping_bit_and", lambda gid, m: (gid & m) == 0)
+_register_grouping("grouping_cmp", lambda gid, m: gid <= m)
+
+
+@register("grouping")
+def _grouping():
+    """The single-mark ModeNumericSet form: 1 when the gid is not one of
+    the grouping ids where the column is materialized (the Expand node's
+    ids are 1-based and sequential)."""
+
+    def infer(ts):
+        return DataType(TypeKind.INT64, False)
+
+    def evaluate(cols, out):
+        gid = cols[0].data.to(torch.int64)
+        member = torch.zeros(gid.shape, dtype=torch.bool, device=gid.device)
+        for c in cols[1:]:
+            member = member | (gid == c.data.to(torch.int64))
+        return Column((~member).to(torch.int64), None, out)
 
     return infer, evaluate
 

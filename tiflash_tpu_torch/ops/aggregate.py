@@ -17,17 +17,25 @@ Counterpart of ``tiflash_tpu/ops/aggregate.py``.  Ported here:
   ``direct_agg`` kernel branch (``ops/cuda/direct_agg.py``) and its
   segment sub-method.
 
-Supported aggregates are sum, count, avg, min, max and count_distinct
-on every method (the stream method sums fixed-point arguments only).
-``count_distinct`` marks the first live row of each distinct (group
-keys, argument) pair: the reference's ``_distinct_first_flags``, a
-stable sort and a boundary compare, scattered back to row order; the
-sort method with one unfiltered count_distinct sorts its argument as a
-trailing key instead.  Per-group min/max is a ``scatter_reduce_``
-(``amin``/``amax``) where the reference takes a sorted segmented scan
-(``ops/segments.py``, a TPU scatter workaround); the integers are the
-same.  The other aggregate functions come with the functions slice of
-the port.
+The aggregate functions are the reference's: sum, count, avg, min, max,
+count_distinct, first, quantile, var_pop/var_samp/stddev_pop/stddev_samp,
+bit_and/bit_or/bit_xor, group_concat (plain and DISTINCT, always by the
+sort method) and approx_count_distinct (exact when grouped, the KMV
+estimate of ``ops/sketch.py`` when keyless).  ``count_distinct`` marks
+the first live row of each distinct (group keys, argument) pair and
+``quantile`` the row holding the element at floor(q * (n_valid - 1)) of
+each group's sorted values: a stable sort and a boundary compare,
+scattered back to row order; the sort method with one unfiltered
+count_distinct or quantile sorts its argument as a trailing key instead.
+Per-group min/max/first is a ``scatter_reduce_`` where the reference
+takes a sorted segmented scan (``ops/segments.py``, a TPU scatter
+workaround); the integers are the same.  Bit aggregates reduce int64 bit
+patterns (``torch.uint64`` lacks the ops) by a segmented scan over rows
+sorted by group, and return BIGINT UNSIGNED, never NULL.  Float sums
+(sum, avg, the variance moments) add in another order than the
+reference's, so they agree to rounding, within the bound each test
+states.  The distributed forms (``approx_cd_partial``/``approx_cd_final``)
+and ``mode="auto"`` raise: they come with the distribution slice.
 """
 
 from __future__ import annotations
@@ -47,18 +55,34 @@ from ..core.dtypes import (
     UINT64,
 )
 
-_SUPPORTED = ("sum", "count", "avg", "min", "max", "count_distinct")
+# MySQL bit-reduction aggregates: 64-bit accumulation, never NULL (an
+# empty group holds the identity)
+_BIT_FUNCS = ("bit_and", "bit_or", "bit_xor")
+_BIT_OPS = {"bit_and": "band", "bit_or": "bor", "bit_xor": "bxor"}
+_VAR_FUNCS = ("var_pop", "var_samp", "stddev_pop", "stddev_samp")
+_SKETCH_FUNCS = ("approx_count_distinct", "approx_cd_final")
+_DISTRIBUTED = ("approx_cd_partial", "approx_cd_final")
+
+
+def _bit_identity(func: str) -> int:
+    """The identity as an int64 bit pattern (bit_and: all ones)."""
+    return -1 if func == "bit_and" else 0
 
 
 @dataclasses.dataclass(frozen=True)
 class AggDesc:
     """One aggregate: ``func(arg) AS name [FILTER filter_col]``.  ``arg``
-    is None for count(*)."""
+    is None for count(*).  ``param`` is quantile's fraction, group_concat's
+    item cap (default 64) or the sketch's k; ``separator`` and
+    ``distinct`` (values deduplicated, in binary-collation order) are
+    group_concat's."""
 
     func: str
     arg: Optional[str]
     name: str
     filter_col: Optional[str] = None
+    param: Optional[float] = None
+    separator: str = ","
     distinct: bool = False
 
 
@@ -97,11 +121,11 @@ def agg_result_dtype(func: str, arg: Optional[DataType]) -> DataType:
 
 def _check_supported(aggs: Sequence[AggDesc]) -> None:
     for a in aggs:
-        if a.func not in _SUPPORTED or a.distinct:
+        if a.func in _DISTRIBUTED:
             raise NotImplementedError(
-                f"aggregate {a.func}{' distinct' if a.distinct else ''} is "
-                "not ported yet: quantile, group_concat and the rest come "
-                "with the functions slice of the port")
+                f"aggregate {a.func} is the partial/final form of "
+                "approx_count_distinct, only meaningful ahead of an exchange: "
+                "it comes with the distribution slice of the port")
 
 
 # ---------------------------------------------------------------------------
@@ -150,12 +174,12 @@ def _wide_rewrite(block: Block, aggs: Sequence[AggDesc]):
     ]
     minmax = [
         a for a in aggs
-        if a.func in ("min", "max") and a.arg is not None
+        if a.func in ("min", "max", "first") and a.arg is not None
         and _is_wide2(block[a.arg])
     ]
     for a in aggs:
         if (a.arg is not None and _is_wide2(block[a.arg])
-                and a.func not in ("sum", "avg", "count", "min", "max")):
+                and a.func not in ("sum", "avg", "count", "min", "max", "first")):
             raise NotImplementedError(
                 f"{a.func} over a two-limb wide-decimal column")
     if not relevant and not minmax:
@@ -377,20 +401,204 @@ def _distinct_first_flags(block: Block, keys: Sequence[str], arg: str,
     return flags
 
 
+def _quantile_row_flags(block: Block, keys: Sequence[str], arg: str, q: float,
+                        live: torch.Tensor) -> torch.Tensor:
+    """Bool row mask marking, per group, the row holding the q-quantile of
+    ``arg``: the element at floor(q * (n_valid - 1)) of the group's sorted
+    valid values, in row order.  Group keys sort on their raw data, as in
+    the reference."""
+    from .segments import forward_fill_positions
+    from .sort import lexsort_stable
+
+    n = block.capacity
+    c = block[arg]
+    valid = live if c.validity is None else (live & c.validity)
+    operands: List[torch.Tensor] = [~live]
+    for name in keys:
+        kc = block[name]
+        if kc.validity is not None:
+            operands.append(~kc.validity)
+        operands.append(kc.data)
+    n_group_ops = len(operands)
+    operands.append(~valid)  # valid values first within the group
+    operands.append(c.data)
+    perm = lexsort_stable(operands)
+    dev = live.device
+    gb = torch.zeros(n, dtype=torch.bool, device=dev)
+    for op in operands[:n_group_ops]:
+        arr = op[perm]
+        gb |= arr != torch.roll(arr, 1)
+    gb[:1] = True
+    gid = torch.cumsum(gb.to(torch.int64), 0) - 1
+    start = forward_fill_positions(gb)
+    valid_s = valid[perm]
+    cnt = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
+        0, gid, valid_s.to(torch.int64))
+    target = start + torch.floor(q * (cnt[gid] - 1).to(torch.float64)).to(torch.int64)
+    flags_sorted = (torch.arange(n, device=dev) == target) & valid_s
+    flags = torch.empty_like(flags_sorted)
+    flags[perm] = flags_sorted
+    return flags
+
+
 def _compute_distinct_flags(block: Block, keys: Sequence[str],
                             aggs: Sequence[AggDesc], live: torch.Tensor) -> dict:
-    """Per count_distinct aggregate, its first-occurrence row flags over
-    the rows passing its filter."""
+    """Per count_distinct aggregate its first-occurrence row flags, per
+    quantile its target-row flags, over the rows passing its filter."""
     out = {}
     for a in aggs:
         if a.func == "count_distinct":
             out[a.name] = _distinct_first_flags(block, keys, a.arg,
                                                 _agg_live(block, a, live))
+        elif a.func == "quantile":
+            q = a.param if a.param is not None else 0.5
+            out[a.name] = _quantile_row_flags(block, keys, a.arg, q,
+                                              _agg_live(block, a, live))
     return out
 
 
 def _masked_eligible(aggs: Sequence[AggDesc]) -> bool:
+    return all(a.func in ("sum", "count", "avg", "min", "max", "first") + _BIT_FUNCS
+               for a in aggs)
+
+
+def _stream_batched_eligible(aggs: Sequence[AggDesc]) -> bool:
     return all(a.func in ("sum", "count", "avg", "min", "max") for a in aggs)
+
+
+def _bit_values(col: Column, valid_row: torch.Tensor, func: str) -> torch.Tensor:
+    """The argument as int64 bit patterns (the reference's astype(uint64)),
+    the identity on rows that do not contribute."""
+    from ..expr.functions import _u64_operand
+
+    bits = _u64_operand(col.data)
+    return torch.where(valid_row, bits,
+                       torch.full((), _bit_identity(func), dtype=torch.int64,
+                                  device=bits.device))
+
+
+_TRASH_LANES = 1024
+
+
+def _slot_spans(idx: torch.Tensor, num_slots: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(first row, last row) of each slot of non-decreasing slot ids
+    ``idx``, -1 for an empty slot; rows at or past ``num_slots`` are
+    trash.  Each slot has one first and one last row, so the scatter
+    writes each address once (the other rows go to trash lanes by
+    position): no atomics contend, unlike an ``index_add_`` into few
+    slots."""
+    n = idx.shape[0]
+    dev = idx.device
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    trash = num_slots + pos % _TRASH_LANES
+    out = []
+    for shift in (1, -1):
+        edge = idx != torch.roll(idx, shift)
+        if n:
+            edge[0 if shift == 1 else n - 1] = True
+        table = torch.full((num_slots + _TRASH_LANES,), -1, dtype=torch.int64, device=dev)
+        table.scatter_(0, torch.where(edge & (idx < num_slots), idx, trash), pos)
+        out.append(table[:num_slots])
+    return out[0], out[1]
+
+
+def _scan_segment_reduce(op: str, vals: torch.Tensor, gids: torch.Tensor,
+                         num_slots: int, ident, sorted_ids: bool) -> torch.Tensor:
+    """Per-slot reduction of ``op`` (``window._segmented_prefix``'s ops)
+    by a segmented scan over the rows in group order (a stable sort of
+    the ids unless they never decrease already), read at each slot's last
+    row; an empty slot holds ``ident``.  The order of operations depends
+    on the rows alone, so a float sum is the same on every device."""
+    from .window import _segmented_prefix
+
+    dev = vals.device
+    idx = gids.long()
+    if not sorted_ids:
+        order = torch.argsort(idx, stable=True)
+        idx, vals = idx[order], vals[order]
+    n = idx.shape[0]
+    ident_t = torch.full((), ident, dtype=vals.dtype, device=dev)
+    if not n:
+        return ident_t.expand(num_slots).clone()
+    start = idx != torch.roll(idx, 1)
+    start[:1] = True
+    run = _segmented_prefix(op, vals, start)
+    _, last = _slot_spans(idx, num_slots)
+    return torch.where(last >= 0, run[last.clamp(min=0)], ident_t)
+
+
+def _bit_segment_reduce(func: str, bits: torch.Tensor, gids: torch.Tensor,
+                        num_slots: int, sorted_ids: bool) -> Column:
+    """Per-slot bit_and/or/xor of int64 bit patterns, as a BIGINT
+    UNSIGNED column (never NULL: an empty slot holds the identity).  Bit
+    operations are exact in any order."""
+    from ..expr.functions import _u64
+
+    red = _scan_segment_reduce(_BIT_OPS[func], bits, gids, num_slots,
+                               _bit_identity(func), sorted_ids)
+    return Column(_u64(red), None, UINT64)
+
+
+def _moments(a: AggDesc, col: Column, valid_row: torch.Tensor, segsum, cnt):
+    """var_pop/var_samp/stddev_pop/stddev_samp from the sum and the sum of
+    squares of the argument as a double (decimals divided by 10^scale)."""
+    from ..expr.functions import _div_f64, _sqrt
+
+    x = col.data.to(torch.float64)
+    if col.dtype.is_decimal:
+        x = _div_f64(x, 10 ** col.dtype.scale)
+    x = torch.where(valid_row, x, torch.zeros_like(x))
+    s1, s2 = segsum(x), segsum(x * x)
+    nf = cnt.clamp(min=1).to(torch.float64)
+    var = torch.clamp(s2 / nf - (s1 / nf) ** 2, min=0.0)
+    if a.func.endswith("samp"):
+        var = var * nf / torch.clamp(nf - 1.0, min=1.0)
+        ok = cnt > 1
+    else:
+        ok = cnt > 0
+    data = _sqrt(var) if a.func.startswith("stddev") else var
+    return Column(data, ok, agg_result_dtype(a.func, col.dtype))
+
+
+def _group_concat(a: AggDesc, col: Column, base: torch.Tensor, cnt: torch.Tensor,
+                  sorted_layout, segsum) -> Column:
+    """Per-slot dictionary codes as a (num_slots, max_items) gather matrix:
+    the sort put each group's contributing rows first in its span (in row
+    order, or value order for DISTINCT), so slot g's item j is row
+    start_g + j (DISTINCT: the j-th distinct value's first row).  The
+    strings are joined with the separator when the column is decoded."""
+    from .merge import flagged_positions
+
+    if sorted_layout is None:
+        raise NotImplementedError("group_concat requires the sort method")
+    if col.dictionary is None:
+        raise NotImplementedError(
+            "group_concat argument must be a dictionary string column")
+    first_flags, ends_dense = sorted_layout
+    dev = base.device
+    max_items = int(a.param) if a.param else 64
+    n_rows = col.data.shape[0]
+    item = torch.arange(max_items, dtype=torch.int64, device=dev)
+    if a.distinct:
+        vrow = base if col.validity is None else (base & col.validity)
+        newval = col.data != torch.roll(col.data, 1)
+        dist_first = vrow & (first_flags | newval)
+        shown = segsum(dist_first.to(torch.int64))
+        compact = flagged_positions(dist_first, n_rows)
+        dstarts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                             torch.cumsum(shown, 0)[:-1]])
+        idx = (dstarts[:, None] + item[None, :]).clamp(0, n_rows - 1)
+        codes = col.data[compact[idx].clamp(min=0).long()]
+    else:
+        prev_e = torch.cat([torch.full((1,), -1, dtype=torch.int64, device=dev),
+                            ends_dense[:-1]])
+        starts = (prev_e + 1).clamp(min=0)
+        idx = (starts[:, None] + item[None, :]).clamp(0, n_rows - 1)
+        codes = col.data[idx]
+        shown = cnt
+    vmat = item[None, :] < shown.clamp(max=max_items)[:, None]
+    return Column(codes, vmat, agg_result_dtype(a.func, col.dtype), col.dictionary,
+                  concat_sep=a.separator)
 
 
 @dataclasses.dataclass
@@ -436,15 +644,38 @@ def _accumulate(
     live: torch.Tensor,
     num_slots: int,
     distinct_flags: Optional[dict] = None,
+    sorted_layout: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    sorted_ids: bool = False,
 ) -> List[Tuple[str, Column]]:
-    """Segment sub-method: every aggregate as an ``index_add_`` (min/max a
-    ``scatter_reduce_``) into ``num_slots`` dense slots plus a trailing
-    trash slot, where dead rows (``gids == num_slots``) land.
-    ``distinct_flags`` holds, per count_distinct, its first-occurrence
-    row flags in the block's row order."""
+    """Segment sub-method: every aggregate as an ``index_add_`` (min/max/
+    first a ``scatter_reduce_``) into ``num_slots`` dense slots plus a
+    trailing trash slot, where dead rows (``gids == num_slots``) land.
+    With ``sorted_ids`` (the sort and stream methods) a sum reads each
+    slot's span instead: an integer sum as a difference of the running
+    sum, a float sum from a segmented scan.
+    ``distinct_flags`` holds, per count_distinct and quantile, its row
+    flags in the block's row order.  ``sorted_layout`` = (group start
+    flags, each slot's last row) of rows sorted by group, which
+    group_concat needs; ``sorted_ids`` says the ids never decrease."""
     idx = gids.long()
 
+    spans: list = []
+
     def segsum(vals: torch.Tensor) -> torch.Tensor:
+        if sorted_ids and vals.is_floating_point():
+            # rows in group order: a float sum as a segmented scan, in one
+            # order of additions on every device (the reference's shape)
+            return _scan_segment_reduce("sum", vals, gids, num_slots, 0.0, True)
+        if sorted_ids:
+            # an integer sum: the running sum differenced over each slot's
+            # span (exact mod 2^64), the reference's sorted layout
+            if not spans:
+                spans.extend(_slot_spans(idx, num_slots))
+            first, last = spans
+            ps = torch.cumsum(vals, 0)
+            zero = torch.zeros((), dtype=ps.dtype, device=ps.device)
+            before = torch.where(first > 0, ps[(first - 1).clamp(min=0)], zero)
+            return torch.where(last >= 0, ps[last.clamp(min=0)] - before, zero)
         acc = torch.zeros(num_slots + 1, dtype=vals.dtype, device=vals.device)
         return acc.index_add_(0, idx, vals)[:num_slots]
 
@@ -467,6 +698,39 @@ def _accumulate(
             out.append((a.name, Column(cnt, None, INT64)))
             continue
         valid_row = base if col.validity is None else (base & col.validity)
+        if a.func == "group_concat":
+            out.append((a.name, _group_concat(a, col, base, cnt, sorted_layout,
+                                              segsum)))
+            continue
+        if a.func == "quantile":
+            rdt = agg_result_dtype(a.func, col.dtype)
+            ident = _identity_for("max", col.dtype)
+            vals = torch.where(base & distinct_flags[a.name], col.data,
+                               torch.full((), ident, dtype=col.data.dtype,
+                                          device=live.device))
+            red = _segment_reduce("max", vals, idx, num_slots + 1, ident)[:num_slots]
+            out.append((a.name, Column(red.to(rdt.torch_dtype), cnt > 0, rdt,
+                                       col.dictionary)))
+            continue
+        if a.func in _VAR_FUNCS:
+            out.append((a.name, _moments(a, col, valid_row, segsum, cnt)))
+            continue
+        if a.func == "first":
+            # the value at the group's first valid row
+            n_rows = col.data.shape[0]
+            pos = torch.arange(n_rows, dtype=torch.int64, device=live.device)
+            pmin = _segment_reduce("min", torch.where(valid_row, pos,
+                                                      torch.full_like(pos, n_rows)),
+                                   idx, num_slots + 1, n_rows)[:num_slots]
+            rdt = agg_result_dtype(a.func, col.dtype)
+            out.append((a.name, Column(col.data[pmin.clamp(max=n_rows - 1)], cnt > 0,
+                                       rdt, col.dictionary)))
+            continue
+        if a.func in _BIT_FUNCS:
+            out.append((a.name, _bit_segment_reduce(
+                a.func, _bit_values(col, valid_row, a.func), gids, num_slots,
+                sorted_ids)))
+            continue
         if a.func in ("min", "max"):
             rdt = agg_result_dtype(a.func, col.dtype)
             ident = _identity_for(a.func, col.dtype)
@@ -541,6 +805,22 @@ def _accumulate_masked(
             reds = per_slot(reduce_slot)
             out.append((a.name, Column(reds.to(rdt.torch_dtype), cnts > 0, rdt,
                                        col.dictionary)))
+            continue
+        if a.func == "first":
+            n_rows = col.data.shape[0]
+            pos = torch.arange(n_rows, dtype=torch.int64, device=live.device)
+            far = torch.full_like(pos, n_rows)
+            pmins = per_slot(lambda s, _valid=valid: torch.amin(
+                torch.where(slot_masks[s] & _valid, pos, far)) if n_rows else
+                torch.zeros((), dtype=torch.int64, device=live.device))
+            out.append((a.name, Column(col.data[pmins.clamp(max=max(n_rows - 1, 0))],
+                                       cnts > 0, agg_result_dtype(a.func, col.dtype),
+                                       col.dictionary)))
+            continue
+        if a.func in _BIT_FUNCS:
+            gids = torch.where(live, slot_ids, torch.full_like(slot_ids, domain))
+            out.append((a.name, _bit_segment_reduce(
+                a.func, _bit_values(col, valid, a.func), gids, domain, False)))
             continue
         if key not in memo_sums:
             acc_dt = torch.float64 if col.dtype.is_float else torch.int64
@@ -666,6 +946,23 @@ def aggregate_direct(
                            torch.zeros((), dtype=torch.int64, device=dev))
 
 
+def _gc_invalid(block: Block, a: AggDesc) -> Optional[torch.Tensor]:
+    """Rows that do not contribute to a group_concat (failing its filter
+    or a NULL argument), or None when every row does; they sort to the
+    group's tail so the contributing rows start its span."""
+    inv = None
+    if a.filter_col is not None:
+        f = block[a.filter_col]
+        m = f.data.to(torch.bool)
+        if f.validity is not None:
+            m = m & f.validity
+        inv = ~m
+    gcol = block[a.arg]
+    if gcol.validity is not None:
+        inv = ~gcol.validity if inv is None else (inv | ~gcol.validity)
+    return inv
+
+
 def aggregate_sort(
     block: Block, keys: Sequence[str], aggs: Sequence[AggDesc], num_slots: int
 ) -> AggregateResult:
@@ -678,6 +975,7 @@ def aggregate_sort(
     scatter-free cumulative-sum layout is a TPU workaround; the integers
     are the same).  More groups than ``num_slots`` report the number
     needed as the overflow."""
+    from .segments import backward_fill_positions, forward_fill_positions
     from .sort import lexsort_stable
 
     _check_supported(aggs)
@@ -685,10 +983,16 @@ def aggregate_sort(
     live = block.sel_mask()
     dev = live.device
     key_cols = [block[k] for k in keys]
-    special = [a for a in aggs if a.func == "count_distinct"]
-    # one unfiltered count_distinct sorts its argument as a trailing key:
-    # its first-occurrence flags come off the sorted rows directly
-    in_sort_special = len(special) == 1 and special[0].filter_col is None
+    gc_orders = [(a, _gc_invalid(block, a)) for a in aggs if a.func == "group_concat"]
+    if sum(1 for a, inv in gc_orders if inv is not None or a.distinct) > 1:
+        raise NotImplementedError(
+            "at most one group_concat with a nullable/filtered/DISTINCT "
+            "argument per aggregation (each needs its own in-group order)")
+    special = [a for a in aggs if a.func in ("count_distinct", "quantile")]
+    # one unfiltered count_distinct or quantile sorts its argument as a
+    # trailing key: its row flags come off the sorted rows directly
+    in_sort_special = (len(special) == 1 and special[0].filter_col is None
+                       and not gc_orders)
     operands: List[torch.Tensor] = [~live]  # live rows first
     for c in key_cols:
         # a wide-decimal key sorts limb by limb (lower limbs are >= 0)
@@ -710,6 +1014,12 @@ def aggregate_sort(
         sc = block[special[0].arg]
         operands.append(~sc.valid_mask())  # valid arg values first in group
         operands.append(sc.data)
+    for a, inv in gc_orders:
+        if inv is not None:
+            operands.append(inv)  # rows that do not contribute go last
+        if a.distinct:
+            operands.append(block[a.arg].data)  # duplicates adjacent, in order
+    # the sort is stable: ties keep row order, group_concat's item order
     perm = lexsort_stable(operands)
 
     neq = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -717,13 +1027,30 @@ def aggregate_sort(
         arr = op[perm]
         neq |= arr != torch.roll(arr, 1)
     neq[:1] = False
-    if in_sort_special:
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    if in_sort_special and special[0].func == "count_distinct":
         pneq = neq.clone()
         for op in operands[num_group_keys:]:
             arr = op[perm]
             pneq |= arr != torch.roll(arr, 1)
         pneq[:1] = True
         dflags = {special[0].name: pneq}
+    elif in_sort_special:
+        # quantile: each group's target row from the sorted positions
+        q = special[0].param if special[0].param is not None else 0.5
+        first_of_grp = neq.clone()
+        first_of_grp[:1] = True
+        start = forward_fill_positions(first_of_grp)
+        valid_s = ~operands[num_group_keys][perm]
+        last_flag = torch.roll(first_of_grp, -1)
+        last_flag[n - 1:] = True
+        end_row = backward_fill_positions(last_flag)
+        cumv = torch.cumsum(valid_s.to(torch.int64), 0)
+        at_prev = torch.where(start > 0, cumv[(start - 1).clamp(min=0)],
+                              torch.zeros_like(start))
+        cnt_row = cumv[end_row] - at_prev
+        target = start + torch.floor(q * (cnt_row - 1).to(torch.float64)).to(torch.int64)
+        dflags = {special[0].name: (pos == target) & valid_s}
     else:
         dflags = {k: v[perm] for k, v in
                   _compute_distinct_flags(block, keys, aggs, live).items()}
@@ -745,11 +1072,21 @@ def aggregate_sort(
                 needed.append(nm)
     sorted_block = (block.select(needed).take(perm) if needed
                     else Block(names=(), columns=(), sel=None))
-    acc = _accumulate(aggs, sorted_block, gids, live_sorted, num_slots, dflags)
+    first = live_sorted & (neq | (pos == 0) | ~torch.roll(live_sorted, 1))
+    layout = None
+    if gc_orders:
+        live_next = torch.cat([live_sorted[1:],
+                               torch.zeros(1, dtype=torch.bool, device=dev)])
+        neq_next = torch.cat([neq[1:], torch.ones(1, dtype=torch.bool, device=dev)])
+        last = live_sorted & (neq_next | ~live_next)
+        ends = torch.full((num_slots + 1,), -1, dtype=torch.int64, device=dev)
+        ends.scatter_(0, torch.where(last, gids, torch.full_like(gids, num_slots)).long(),
+                      pos)
+        layout = (first, ends[:num_slots])
+    acc = _accumulate(aggs, sorted_block, gids, live_sorted, num_slots, dflags,
+                      sorted_layout=layout, sorted_ids=True)
 
     # each group's keys from its first row, composed through perm
-    pos = torch.arange(n, dtype=torch.int64, device=dev)
-    first = live_sorted & (neq | (pos == 0) | ~torch.roll(live_sorted, 1))
     starts = torch.zeros(num_slots + 1, dtype=torch.int64, device=dev)
     starts.scatter_(0, torch.where(first, gids, torch.full_like(gids, num_slots)).long(),
                     pos)
@@ -777,6 +1114,7 @@ def _stream_accumulate_batched(
     ends_ok: torch.Tensor,
     e_idx: torch.Tensor,
     num_slots: int,
+    first_of_group: torch.Tensor,
 ) -> Tuple[List[Tuple[str, Column]], torch.Tensor]:
     """Every per-group quantity of the stream method is a read at the
     group's end row: a cumulative sum differenced against the previous
@@ -823,15 +1161,18 @@ def _stream_accumulate_batched(
                                        col.dictionary)))
             continue
         if col.dtype.is_float:
-            raise NotImplementedError(
-                f"{a.func} over a float column by the stream method is not "
-                "ported yet: the reference sums it with a segmented scan "
-                "whose rounding order comes with the functions slice of the "
-                "port")
-        vals = torch.where(valid_row, col.data.to(torch.int64),
-                           torch.zeros((), dtype=torch.int64, device=live.device))
-        # the running sums may wrap; their differences are exact mod 2^64
-        sums = at_ends(torch.cumsum(vals, 0))
+            # a running sum that restarts at each group, read at its end
+            # (a global difference would cancel across groups)
+            from .window import _segmented_prefix
+
+            vals = torch.where(valid_row, col.data.to(torch.float64),
+                               torch.zeros((), dtype=torch.float64, device=live.device))
+            sums = _segmented_prefix("sum", vals, first_of_group)[e_idx]
+        else:
+            vals = torch.where(valid_row, col.data.to(torch.int64),
+                               torch.zeros((), dtype=torch.int64, device=live.device))
+            # the running sums may wrap; their differences are exact mod 2^64
+            sums = at_ends(torch.cumsum(vals, 0))
         if a.func == "sum":
             rdt = agg_result_dtype(a.func, col.dtype)
             scale_shift = rdt.scale - (col.dtype.scale if col.dtype.is_decimal else 0)
@@ -878,15 +1219,18 @@ def aggregate_stream(
     ends_ok = ends_dense >= 0
     e_idx = ends_dense.clamp(min=0).long()
 
-    if _masked_eligible(aggs):
+    if _stream_batched_eligible(aggs):
+        first_of_group = neq.clone()
+        first_of_group[:1] = True
         acc, occupied = _stream_accumulate_batched(aggs, block, keys, key_cols, live,
-                                                   gids, ends_ok, e_idx, num_slots)
+                                                   gids, ends_ok, e_idx, num_slots,
+                                                   first_of_group)
         out = Block(names=tuple(nm for nm, _ in acc),
                     columns=tuple(c for _, c in acc), sel=occupied)
         return AggregateResult(out, torch.sum(occupied, dtype=torch.int32), overflow)
 
     dflags = _compute_distinct_flags(block, keys, aggs, live)
-    acc = _accumulate(aggs, block, gids, live, num_slots, dflags)
+    acc = _accumulate(aggs, block, gids, live, num_slots, dflags, sorted_ids=True)
     # occupied slots: groups with a live row (a cumulative sum at the ends)
     prev_ends = torch.cat([torch.full((1,), -1, dtype=torch.int64, device=dev),
                            ends_dense[:-1].to(torch.int64)])
@@ -907,9 +1251,37 @@ def aggregate_stream(
     return AggregateResult(out, torch.sum(occupied, dtype=torch.int32), overflow)
 
 
+def _sketch_hashes(block: Block, a: AggDesc) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(62-bit value hashes, live and not-NULL mask) for a sketch
+    aggregate."""
+    from .hashing import hash_columns_u63
+
+    col = block[a.arg]
+    live = _agg_live(block, a, block.sel_mask())
+    if col.validity is not None:
+        live = live & col.validity
+    return hash_columns_u63([col]), live
+
+
 def aggregate_scalar(block: Block, aggs: Sequence[AggDesc]) -> Block:
     """Aggregation without GROUP BY: single-row output (slot 0), by the
-    masked method, or with a count_distinct by the segment one."""
+    masked method, or with a count_distinct, quantile or variance by the
+    segment one; approx_count_distinct is the KMV estimate."""
+    if any(a.func in _SKETCH_FUNCS for a in aggs):
+        from .sketch import SKETCH_K, kmv_candidates, kmv_estimate
+
+        rest = [a for a in aggs if a.func not in _SKETCH_FUNCS]
+        base = aggregate_scalar(block, rest) if rest else None
+        cols: dict = {}
+        for a in aggs:
+            if a.func not in _SKETCH_FUNCS:
+                cols[a.name] = base[a.name]
+                continue
+            h, live = _sketch_hashes(block, a)
+            k = int(a.param) if a.param else SKETCH_K
+            est = kmv_estimate(kmv_candidates(h, live, k))
+            cols[a.name] = Column(est[None], None, INT64)
+        return Block.from_dict(cols)
     live = block.sel_mask()
     if _masked_eligible(aggs):
         acc, _ = _accumulate_masked(
@@ -933,6 +1305,16 @@ def hash_aggregate(
 ) -> AggregateResult:
     """Method dispatch (the ``chooseAggregationMethod`` analog)."""
     _check_supported(aggs)
+    for a in aggs:
+        if a.func in _BIT_FUNCS and a.arg in block.names:
+            # MySQL takes a temporal argument's numeric form (TIME
+            # 11:11:35 -> 111135) before the bit operation
+            c = block[a.arg]
+            if c.dtype.kind in (TypeKind.DATE, TypeKind.DATETIME, TypeKind.DURATION):
+                from ..expr.functions import cast_column
+
+                block = block.with_column(a.arg, cast_column(
+                    c, INT64.with_nullable(c.dtype.nullable)))
     rw = _wide_rewrite(block, aggs)
     if rw is not None:
         block, aggs, post = rw
@@ -948,12 +1330,24 @@ def _dispatch_aggregate(
     num_slots: Optional[int] = None,
 ) -> AggregateResult:
     dev = block.device
+    if keys and any(a.func == "approx_count_distinct" for a in aggs):
+        # grouped, the exact count is available, and "approximate" may be
+        # exact
+        aggs = [dataclasses.replace(a, func="count_distinct")
+                if a.func == "approx_count_distinct" else a for a in aggs]
     if not keys:
         b = aggregate_scalar(block, aggs)
         return AggregateResult(b, torch.ones((), dtype=torch.int32, device=dev),
                                torch.zeros((), dtype=torch.int64, device=dev))
+    if any(a.func == "group_concat" for a in aggs):
+        # group_concat needs the sorted contiguous-span layout
+        return aggregate_sort(block, keys, aggs, num_slots or block.capacity)
     packed = pack_keys_direct([block[k] for k in keys])
     if packed is not None and packed[1] <= DIRECT_DOMAIN_LIMIT:
+        if (any(a.func in _BIT_FUNCS for a in aggs)
+                and (packed[1] > MASKED_DOMAIN_LIMIT or not _masked_eligible(aggs))):
+            # bit reductions take the masked method or the sort method
+            return aggregate_sort(block, keys, aggs, num_slots or block.capacity)
         return aggregate_direct(block, keys, aggs, packed)
     if num_slots is None:
         num_slots = block.capacity

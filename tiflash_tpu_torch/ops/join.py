@@ -15,11 +15,21 @@ Ported here:
 - ``build_join`` and ``JoinBuild.take_sorted``;
 - the unique-build fast path (``probe_join_unique``) and the N:M path
   with a bounded output and a required-capacity overflow
-  (``probe_join_general``), both for ``inner``, ``left`` (outer),
-  ``semi`` and ``anti`` (the last two narrow the probe side's selection;
-  a plain anti join keeps probe rows whose key is NULL).  A left join
-  keeps every selected probe row in its place, with NULL build columns
-  where it matched nothing;
+  (``probe_join_general``), for every join kind of the reference:
+  ``inner``, ``left``/``left_outer`` and ``right_as_probe_outer`` (every
+  selected probe row stays in its place, with NULL build columns where
+  it matched nothing; on the N:M path ``right_as_probe_outer`` expands
+  as an inner join, as in the reference), ``semi`` and ``anti`` (they
+  narrow the probe side's selection; a plain anti join keeps probe rows
+  whose key is NULL), ``anti_null_aware`` (SQL's ``NOT IN``:
+  ``_null_aware_anti_sel``), and ``left_outer_semi`` and
+  ``left_outer_semi_null_aware`` (``EXISTS``/``IN`` in the select list:
+  every probe row, with a bool ``__semi_matched`` column, NULL where
+  ``IN`` is unknown);
+- ``right_outer`` and ``full_outer`` (``hash_join_with_tail``): an inner
+  or a left-outer pass, then the build rows no probe row matched
+  (``scan_non_matched``), with NULL probe columns, appended in build key
+  order;
 - hashed keys always take the general path, which re-verifies each
   candidate match on the true keys (``_keys_equal``), so a hash
   collision never joins two different key tuples;
@@ -29,8 +39,6 @@ Ported here:
 - ``cross_join``: every live probe row with every live build row, by
   the same prefix-sum expansion, with a required-capacity overflow.
 
-Right, full, null-aware and left-outer-semi joins raise
-``NotImplementedError``: they come with the breadth slice of the port.
 NULL join keys never match.
 """
 
@@ -44,10 +52,9 @@ import torch
 from ..core.block import Block, Column
 from ..core.dtypes import DataType, TypeKind
 
-_LATER = ("comes with the breadth slice of the port (right, full, "
-          "null-aware and left-outer-semi joins)")
-_KINDS = ("inner", "left", "left_outer", "semi", "anti")
 _LEFT = ("left", "left_outer")
+_SEMI_COLUMN = ("left_outer_semi", "left_outer_semi_null_aware")
+_NO_EXPANSION = ("semi", "anti", "anti_null_aware") + _SEMI_COLUMN
 
 
 # ---------------------------------------------------------------------------
@@ -246,9 +253,46 @@ def _matched_flags(build: JoinBuild, build_idx: torch.Tensor) -> torch.Tensor:
     return flags[:cap]
 
 
-def _check_kind(kind: str) -> None:
-    if kind not in _KINDS:
-        raise NotImplementedError(f"join kind {kind!r} {_LATER}")
+def _build_null_state(build: JoinBuild) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the build side has a selected NULL-key row, it has no selected
+    row): the matchable rows are the first ``num_live`` sorted positions,
+    so a selected row past them has a NULL key."""
+    selected = build.sorted_sel
+    matchable = torch.arange(build.capacity, device=selected.device) < build.num_live
+    return torch.any(selected & ~matchable), ~torch.any(selected)
+
+
+def _null_aware_anti_sel(build: JoinBuild, matched: torch.Tensor,
+                         probe_null: torch.Tensor) -> torch.Tensor:
+    """NOT IN: an empty build keeps every probe row; otherwise a NULL
+    probe key, a match, or a NULL key on the build side drops it."""
+    has_null, empty = _build_null_state(build)
+    keep = ~probe_null & ~matched & ~has_null
+    return torch.where(empty, torch.ones_like(keep), keep)
+
+
+def _no_expansion(kind: str, build: JoinBuild, probe_block: Block,
+                  matched: torch.Tensor, probe_null: torch.Tensor) -> Block:
+    """The probe rows of a semi-type join: narrowed (semi, anti, NOT IN)
+    or all kept with a bool ``__semi_matched`` column (EXISTS, and IN with
+    NULL where it is unknown: an unmatched row whose key is NULL or whose
+    build side holds a NULL key, unless the build side is empty)."""
+    from ..core.dtypes import BOOL
+
+    if kind == "semi":
+        return probe_block.and_sel(matched)
+    if kind == "anti":
+        # NOT EXISTS: a NULL-key row has no match, so it stays
+        return probe_block.and_sel(~matched)
+    if kind == "anti_null_aware":
+        return probe_block.and_sel(_null_aware_anti_sel(build, matched, probe_null))
+    if kind == "left_outer_semi":
+        col = Column(matched, None, BOOL)
+    else:
+        has_null, empty = _build_null_state(build)
+        unknown = ~matched & (probe_null | has_null) & ~empty
+        col = Column(matched, ~unknown, BOOL.with_nullable(True))
+    return probe_block.with_column("__semi_matched", col)
 
 
 def probe_join_unique(build: JoinBuild, probe_block: Block,
@@ -257,20 +301,19 @@ def probe_join_unique(build: JoinBuild, probe_block: Block,
     """1:N fast path for unique build keys: output capacity == probe
     capacity, each probe row matches at most one build row.  Returns
     (joined block, matched build positions)."""
-    _check_kind(kind)
     probe_live = probe_block.sel_mask() & ~probe_null
     lo, hi = _probe_ranges(build, probe_keys)
     matched = probe_live & (hi > lo)
     bidx = torch.where(matched, lo, torch.full_like(lo, -1))
-    if kind == "semi":
-        return probe_block.and_sel(matched), _matched_flags(build, bidx)
-    if kind == "anti":
-        # NOT EXISTS: a NULL-key row has no match, so it stays
-        return probe_block.and_sel(~matched), _matched_flags(build, bidx)
+    if kind in _NO_EXPANSION:
+        return (_no_expansion(kind, build, probe_block, matched, probe_null),
+                _matched_flags(build, bidx))
+    if kind not in ("inner", "right_as_probe_outer") + _LEFT:
+        raise NotImplementedError(f"join kind {kind}")
     build_rows = build.take_sorted(bidx, fill_invalid=True)
     joined = _merge_blocks(probe_block, build_rows)
-    # inner keeps the matched rows; left keeps every selected probe row
-    joined = joined.with_sel(probe_block.sel_mask() if kind in _LEFT else matched)
+    # inner keeps the matched rows; the outer kinds every selected probe row
+    joined = joined.with_sel(matched if kind == "inner" else probe_block.sel_mask())
     return joined, _matched_flags(build, bidx)
 
 
@@ -289,7 +332,6 @@ def probe_join_general(
     row at least once.  ``verify`` = (probe key names, build key names)
     re-checks the true keys of each candidate of a hashed-key join.
     Returns (joined, matched build flags, required capacity or 0)."""
-    _check_kind(kind)
     from .merge import dense_inverse
 
     probe_live = probe_block.sel_mask() & ~probe_null
@@ -298,13 +340,12 @@ def probe_join_general(
     zero = torch.zeros_like(lo)
     lo = torch.where(probe_live, lo, zero)
     hi = torch.where(probe_live, hi, zero)
-    if verify is None and kind in ("semi", "anti"):
-        # no expansion: the probe rows, narrowed, in the probe's capacity
+    if verify is None and kind in _NO_EXPANSION:
+        # no expansion: the probe rows, in the probe's capacity
         matched = probe_live & (hi > lo)
         bflags = _matched_flags(build, torch.where(matched, lo,
                                                    torch.full_like(lo, -1)))
-        sel = matched if kind == "semi" else ~matched
-        return (probe_block.and_sel(sel), bflags,
+        return (_no_expansion(kind, build, probe_block, matched, probe_null), bflags,
                 torch.zeros((), dtype=torch.int64, device=lo.device))
     counts = (hi - lo).to(torch.int64)
     if kind in _LEFT:
@@ -350,6 +391,26 @@ def probe_join_general(
     bflags = _matched_flags(build, torch.where(live_out, brow,
                                                torch.full_like(brow, -1)))
     return joined, bflags, needed
+
+
+def scan_non_matched(build: JoinBuild, matched_flags: torch.Tensor,
+                     probe_names, probe_block: Block) -> Block:
+    """The right/full-outer tail: the selected build rows no probe row
+    hit, in build key order, with NULL probe columns."""
+    live = build.sorted_sel & ~matched_flags
+    n = build.capacity
+    dev = live.device
+    cols: Dict[str, Column] = {}
+    for name in probe_names:
+        c = probe_block[name]
+        data = torch.zeros((n,) + tuple(c.data.shape[1:]), dtype=c.data.dtype,
+                           device=dev)
+        cols[name] = Column(data, torch.zeros(n, dtype=torch.bool, device=dev),
+                            c.dtype.with_nullable(True), c.dictionary)
+    sorted_payload = build.block.take(build.perm)
+    for name, c in zip(sorted_payload.names, sorted_payload.columns):
+        cols[name if name not in cols else name + "_r"] = c
+    return Block.from_dict(cols, sel=live)
 
 
 def cross_join(probe_block: Block, build_block: Block,
@@ -402,7 +463,6 @@ def hash_join(
     build columns the join emits.
 
     Returns (joined block, {"build", "matched_flags", "overflow"})."""
-    _check_kind(kind)
     pk = [probe_block[k] for k in probe_key_names]
     bk = [build_block[k] for k in build_key_names]
     pkeys, pnull, bkeys, bnull = normalize_join_keys(pk, bk)
@@ -434,7 +494,8 @@ def hash_join(
         # duplicate live build keys: the fast path kept only the first
         # match of each probe row; say so instead of dropping rows
         zero = torch.zeros((), dtype=torch.int64, device=pkeys.device)
-        overflow = zero if kind not in ("inner",) + _LEFT else torch.where(
+        overflow = zero if kind not in ("inner", "right_as_probe_outer") + _LEFT \
+            else torch.where(
             build.unique, zero,
             torch.full((), probe_block.capacity + 1, dtype=torch.int64,
                        device=pkeys.device))
@@ -454,16 +515,25 @@ def hash_join_with_tail(
     build_payload: Optional[Sequence[str]] = None,
 ):
     """``hash_join`` plus the right/full-outer tail of unmatched build
-    rows.  The kinds ported (inner, left, semi, anti) have no tail."""
-    _check_kind(kind)
-    return hash_join(probe_block, build_block, probe_key_names,
-                     build_key_names, kind=kind,
-                     output_capacity=output_capacity,
-                     build_payload=build_payload)
+    rows: right outer is an inner pass and the tail, full outer a
+    left-outer pass and the tail."""
+    probe_kind = {"right_outer": "inner", "full_outer": "left_outer"}.get(kind, kind)
+    joined, extras = hash_join(probe_block, build_block, probe_key_names,
+                               build_key_names, kind=probe_kind,
+                               output_capacity=output_capacity,
+                               build_payload=build_payload)
+    if kind in ("right_outer", "full_outer"):
+        from ..exchange.skew import concat_blocks
+
+        tail = scan_non_matched(extras["build"], extras["matched_flags"],
+                                probe_block.names, probe_block)
+        joined = concat_blocks(joined, tail)
+    return joined, extras
 
 
 __all__ = [
     "JoinBuild", "build_join", "probe_join_unique", "probe_join_general",
     "cross_join", "hash_join", "hash_join_with_tail", "normalize_join_keys",
+    "scan_non_matched",
     "join_keys_need_verify",
 ]

@@ -7,7 +7,11 @@ scan->filter->project->aggregate path (``ops/stream_fuse.py``), which
 declines any chain but scan/selection/projection (a join child, for
 one), and falls back to the general aggregation methods.  A Join or a
 CrossJoin runs its probe subtree, then its build subtree
-(``ops/join.py``); a TopN runs ``ops/sort.py:top_n``.  A WithCTE runs
+(``ops/join.py``; right and full outer joins append the unmatched build
+rows); a TopN runs ``ops/sort.py:top_n``; a Window runs
+``ops/window.py:window_block``, an Expand ``ops/expand.py:expand_block``,
+and a Union concatenates its children's rows in order
+(``exchange/skew.py:concat_blocks``).  A WithCTE runs
 each definition once, before its child, and every CTERef of that name
 returns the same block.  Node ids are the reference's DFS pre-order ids,
 so overflow keys such as ``Join_5`` match.
@@ -35,9 +39,12 @@ import torch
 from ..core.block import Block
 from ..expr.compile import ExprEvaluator
 from ..expr.nodes import ColumnRef
+from ..exchange.skew import concat_blocks
 from ..ops.aggregate import hash_aggregate
+from ..ops.expand import expand_block
 from ..ops.join import cross_join, hash_join_with_tail
 from ..ops.sort import limit_block, sort_block, top_n
+from ..ops.window import window_block
 from ..runtime.errors import RTERR_PREFIX
 from . import nodes as P
 
@@ -156,8 +163,9 @@ def _exec_node(node: P.PlanNode, tables: Dict[str, Block], diag: Diagnostics,
     if isinstance(node, P.Join):
         if node.rf_id is not None:
             raise NotImplementedError(
-                "runtime filters (Join.rf_id) come with the distribution "
-                "slice of the port")
+                "runtime filters (Join.rf_id, RuntimeFilterApply) come with "
+                "the distribution slice of the port: they need the runner's "
+                "published filters")
         # probe first, then build: the DFS pre-order ids of the reference
         probe = child_of(node.probe)
         build = child_of(node.build)
@@ -170,6 +178,27 @@ def _exec_node(node: P.PlanNode, tables: Dict[str, Block], diag: Diagnostics,
         diag.overflows[nid] = extras["overflow"]
         diag.rows[nid] = joined.num_rows()
         return joined
+
+    if isinstance(node, P.Expand):
+        child = child_of(node.child)
+        out = expand_block(child, [list(s) for s in node.grouping_sets], node.gid_name)
+        diag.rows[nid] = out.num_rows()
+        return out
+
+    if isinstance(node, P.Window):
+        child = child_of(node.child)
+        out = window_block(child, list(node.partition_by), list(node.order_by),
+                           list(node.funcs))
+        diag.rows[nid] = out.num_rows()
+        return out
+
+    if isinstance(node, P.Union):
+        parts = [child_of(c) for c in node.children]
+        out = parts[0]
+        for p in parts[1:]:
+            out = concat_blocks(out, p)
+        diag.rows[nid] = out.num_rows()
+        return out
 
     if isinstance(node, P.CrossJoin):
         probe = child_of(node.probe)
@@ -212,7 +241,7 @@ def _exec_node(node: P.PlanNode, tables: Dict[str, Block], diag: Diagnostics,
 
     raise NotImplementedError(
         f"plan node {type(node).__name__} is not ported yet: it comes with "
-        "a later slice of the port")
+        "the distribution slice of the port")
 
 
 def compile_fragment(

@@ -1,10 +1,11 @@
-"""Plan IR: the node kinds TPC-H's 22 queries run.
+"""Plan IR: the single-device node kinds.
 
 Counterpart of ``tiflash_tpu/plan/nodes.py``: TableScan, Selection,
 AddColumns, Projection, Aggregation, Join, CrossJoin, TopN, Sort, Limit,
-WithCTE and CTERef, with the same fields, ``children`` and ``pretty()``.
-Runtime filters, windows, unions and exchanges come with later slices of
-the port.
+Window, Expand, Union (with ``partition_table_scan``), WithCTE and
+CTERef, with the same fields, ``children`` and ``pretty()``.  Runtime
+filters and the distributed nodes (exchanges, the skew join, the laned
+window) come with the distribution slice of the port.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Dict, Optional, Sequence, Tuple
 from ..expr.nodes import Expr
 from ..ops.aggregate import AggDesc
 from ..ops.sort import SortKey
+from ..ops.window import WindowDesc
 
 
 class PlanNode:
@@ -191,6 +193,58 @@ class CrossJoin(PlanNode):
 
 
 @dataclasses.dataclass
+class Union(PlanNode):
+    """Row concatenation of same-schema children (UNION ALL; also a
+    partitioned table's scan, one child per partition)."""
+
+    inputs: Sequence[PlanNode] = ()
+
+    def __post_init__(self):
+        self.children = tuple(self.inputs)
+
+    def describe(self):
+        return f"Union({len(self.children)})"
+
+
+def partition_table_scan(tables, columns=None) -> Union:
+    """Scan a partitioned table: one TableScan per partition, unioned."""
+    return Union([TableScan(t, columns) for t in tables])
+
+
+@dataclasses.dataclass
+class Expand(PlanNode):
+    """Grouping-sets replication: one copy of the input per grouping set
+    with the keys outside the set NULL and a ``groupingID`` column."""
+
+    grouping_sets: Sequence[Sequence[str]]
+    child: PlanNode = None  # type: ignore[assignment]
+    gid_name: str = "groupingID"
+
+    def __post_init__(self):
+        self.children = (self.child,)
+
+    def describe(self):
+        return f"Expand({[list(s) for s in self.grouping_sets]})"
+
+
+@dataclasses.dataclass
+class Window(PlanNode):
+    """Window functions over (partition, order)."""
+
+    partition_by: Sequence[str]
+    order_by: Sequence[SortKey]
+    funcs: Sequence[WindowDesc]
+    child: PlanNode = None  # type: ignore[assignment]
+
+    def __post_init__(self):
+        self.children = (self.child,)
+
+    def describe(self):
+        fs = ", ".join(f"{f.func}->{f.name}" for f in self.funcs)
+        return f"Window(partition={list(self.partition_by)}; {fs})"
+
+
+@dataclasses.dataclass
 class WithCTE(PlanNode):
     """CTE definitions, each run once, before ``child``, and shared by
     every CTERef of that name below it."""
@@ -218,4 +272,5 @@ class CTERef(PlanNode):
 
 __all__ = ["PlanNode", "TableScan", "Selection", "Projection", "Aggregation",
            "Join", "CrossJoin", "TopN", "Sort", "Limit", "AddColumns",
+           "Union", "partition_table_scan", "Expand", "Window",
            "WithCTE", "CTERef"]
