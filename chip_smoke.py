@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``tiflash_tpu_torch/csrc`` (one
 ``direct_agg.cu``, and the fused scan kernels that ``stream_tile.cu.in``
 generates per plan for the run's fused aggregations (Q1, Q6 and the fuse
 cases of ``tiflash_tpu_torch/testing/fuse_cases.py``, whose programs the
-CPU reference runs give).  Holds each against its plain torch version on
+CPU reference runs give); and the disk spill tier
+``tiflash_tpu_torch/native/spiller.cpp`` with ``g++ -lz``.  Holds each against its plain torch version on
 the card.  Then it drives these paths through
 ``tiflash_tpu_torch.runtime.executor.run_query`` on ``cuda``, at SF1 with
 random data from seed 0:
@@ -20,12 +21,24 @@ random data from seed 0:
   sweep of ``bench/strings.py`` against the CPU run with dictionaries as
   tuples, the ship-month report (a GROUP BY over two string expressions,
   553 slots on the direct_agg kernel) against the CPU run and numpy, and
-  the runtime error of CAST(l_shipmode AS JSON); then Q1 at SF10 (about
-  60M rows, Q1's columns only), whose ``sum_charge`` takes the two-limb
-  recombination, against numpy alone;
+  the runtime error of CAST(l_shipmode AS JSON), and the runner's
+  controls (``runtime_controls_phase``: a ``CancelFlag`` set from another
+  thread mid-run of an out-of-core query, ``max_execution_time_ms``,
+  ``max_result_rows`` in both modes, a failpoint); then, on one SF10
+  catalog (``sf10_catalog``: lineitem with Q1's columns and l_orderkey,
+  orders and customer with Q3's), Q1 (60M rows), whose ``sum_charge``
+  takes the two-limb recombination, against numpy alone, and the
+  reference's out-of-core rehearsal (``outofcore_phase``) through
+  ``QueryRunner``: Q3 by grace hash join and GROUP BY l_orderkey by
+  chunked aggregation and the bucketed final merge, both spilled to disk,
+  Q1 partitioned by group into 2 or 4 partitions (one generated launch
+  each), revenue per ship date by chunks; each against its in-memory
+  card run (Q3 and Q1 also numpy), with the launches the CPU dispatch
+  predicts (``outofcore_predictions``);
 - TPC-H Q7 and Q7 over all nation pairs over the five-table catalog
   (nation, supplier, customer, orders, lineitem), which join and then
-  aggregate by the sort method (Q7) or the direct_agg kernel (Q7-pairs);
+  aggregate by the sort method (Q7) or the direct_agg kernel (Q7-pairs),
+  and EXPLAIN ANALYZE of Q7-pairs (``explain_phase``);
 - TPC-H Q3, Q10, Q4 and Q22 over the three-table catalog (lineitem,
   orders, customer), and ORDER BY l_extendedprice DESC LIMIT 100 over
   the lineitem table: the plan rewrites, the stream aggregation method,
@@ -941,6 +954,11 @@ TILE_CASE_ROWS = 1_000_003
 Q6_OTHER = {"date": "1995-01-01", "date_end": "1996-01-01", "disc_lo": 0.02,
             "disc_hi": 0.04, "quantity": 25.0}   # a second qgen draw of Q6
 SF10 = 10
+# the SF10 catalog Q1 at SF10 and the out-of-core phase share
+SF10_COLUMNS = {"lineitem": ["l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                             "l_returnflag", "l_linestatus", "l_shipdate", "l_orderkey"],
+                "orders": ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"],
+                "customer": ["c_custkey", "c_mktsegment"]}
 Q1_COLUMNS = ["l_quantity", "l_extendedprice", "l_discount", "l_tax", "l_returnflag",
               "l_linestatus", "l_shipdate"]
 _STORAGE_BYTES = {"i32": 4, "u8": 1, "i64": 8}
@@ -1627,25 +1645,32 @@ def string_phase(card: str, cpu_tables, gpu_tables, li: dict) -> dict:
     return {"launches": launches, "max_abs_err": max_err, "yardsticks": y}
 
 
-def sf10_q1_phase(card: str, flush) -> dict:
-    """TPC-H Q1 at SF10 (lineitem only, Q1's seven columns): one launch of
-    the generated kernel over about 60M rows; ``sum_charge``'s bound passes
-    2^62, so the fuse recombines its plane sums in two-limb wide decimals
-    (``wide_out``).  Held bit-exact against numpy with Python integers (no
-    CPU run of the port).  Prints the data generation time, the kernel
-    source's generation time and build, the kernel's time and its bound."""
+def sf10_catalog():
+    """The SF10 catalog (seed 0) that Q1 at SF10 and the out-of-core
+    phase share: lineitem, orders and customer with the columns of
+    ``SF10_COLUMNS``.  Returns (catalog, seconds to make it)."""
+    from tiflash_tpu_torch.storage.tpch import generate_tpch
+
+    t0 = time.perf_counter()
+    cat = generate_tpch(sf=SF10, seed=SEED, tables=Q3_TABLES, column_subset=SF10_COLUMNS)
+    return cat, time.perf_counter() - t0
+
+
+def sf10_q1_phase(card: str, flush, cat, gen_s: float) -> dict:
+    """TPC-H Q1 at SF10 on the shared SF10 catalog (``sf10_catalog``): one
+    launch of the generated kernel over about 60M rows; ``sum_charge``'s
+    bound passes 2^62, so the fuse recombines its plane sums in two-limb
+    wide decimals (``wide_out``).  Held bit-exact against numpy with
+    Python integers (no CPU run of the port).  Prints the data generation
+    time, the kernel source's generation time and build, the kernel's
+    time and its bound.  The returned dict holds numpy's rows (``want``)."""
     import torch
 
     from tiflash_tpu_torch.bench.tpch_queries import q1_plan
     from tiflash_tpu_torch.ops import tile_program as TP
     from tiflash_tpu_torch.ops.cuda import build, stream_agg as SA, stream_tile as ST
     from tiflash_tpu_torch.runtime.executor import run_query
-    from tiflash_tpu_torch.storage.tpch import generate_tpch
 
-    t0 = time.perf_counter()
-    cat = generate_tpch(sf=SF10, seed=SEED, tables=["lineitem"],
-                        column_subset={"lineitem": Q1_COLUMNS})
-    gen_s = time.perf_counter() - t0
     t = cat["lineitem"].block
     li = {n: t[n].data.numpy() for n in Q1_COLUMNS}
     li["rf_dict"] = t["l_returnflag"].dictionary
@@ -1653,7 +1678,7 @@ def sf10_q1_phase(card: str, flush) -> dict:
     want = numpy_q1(li)
     gpu = cat.blocks("cuda")
     n_rows = cat["lineitem"].row_count
-    del cat, t, li
+    del t, li
     torch.cuda.synchronize()
     SA.LAUNCHES = ST.LAUNCHES = 0
     n_built = len(build.BUILD_SECONDS)
@@ -1697,7 +1722,481 @@ def sf10_q1_phase(card: str, flush) -> dict:
     return {"rows": n_rows, "ms": k_ms, "bound_ms": bound_ms, "run_query_ms": q_ms,
             "plain_ms": y["plain_ms"], "library_ms": y["library_ms"],
             "unfused_ms": y["unfused_ms"],
-            "source_generation_s": src_s, "new_builds": new_builds, "max_abs_err": err}
+            "source_generation_s": src_s, "new_builds": new_builds, "max_abs_err": err,
+            "want": want}
+
+
+# ---- the runtime slice: the out-of-core rehearsal at SF10, the runner's controls --
+
+def hc_plan():
+    """The high-cardinality GROUP BY of the reference's SF10 rehearsal
+    (``tools/rehearse_sf10.py``): per l_orderkey of the lines shipped after
+    1995-03-15, sum(l_extendedprice) and count(*)."""
+    from tiflash_tpu_torch.expr.nodes import col
+    from tiflash_tpu_torch.ops.aggregate import AggDesc
+    from tiflash_tpu_torch.plan import nodes as P
+
+    return P.Aggregation(
+        ["l_orderkey"], [AggDesc("sum", "l_extendedprice", "s"), AggDesc("count", None, "c")],
+        P.Selection(col("l_shipdate") > Q3_DATE,
+                    P.TableScan("lineitem",
+                                columns=["l_orderkey", "l_extendedprice", "l_shipdate"])))
+
+
+def daily_revenue_plan():
+    """Revenue and lines per ship date over lineitem (about 2,526 dates:
+    a key domain the direct method takes)."""
+    from tiflash_tpu_torch.ops.aggregate import AggDesc
+    from tiflash_tpu_torch.plan import nodes as P
+
+    return P.Aggregation(
+        ["l_shipdate"], [AggDesc("sum", "l_extendedprice", "revenue"),
+                         AggDesc("count", None, "n")],
+        P.TableScan("lineitem", columns=["l_shipdate", "l_extendedprice"]))
+
+
+def numpy_hc(cat) -> dict:
+    """``hc_plan`` over host arrays: per l_orderkey of the lines shipped
+    after 1995-03-15, sum(l_extendedprice) and count(*), as sorted numpy
+    arrays (keys, sums, counts)."""
+    import numpy as np
+
+    t = cat["lineitem"].block
+    m = t["l_shipdate"].data.numpy() > _days(Q3_DATE)
+    k = t["l_orderkey"].data.numpy()[m]
+    v = t["l_extendedprice"].data.numpy()[m]
+    order = np.argsort(k, kind="stable")
+    k, v = k[order], v[order]
+    uniq, starts = np.unique(k, return_index=True)
+    return {"l_orderkey": uniq, "s": np.add.reduceat(v, starts) if len(k) else v[:0],
+            "c": np.diff(np.append(starts, len(k)))}
+
+
+def check_hc(name: str, block, want: dict) -> None:
+    """A ``hc_plan`` result equals ``numpy_hc``: every key, sum and count;
+    raises naming the first differing row."""
+    import numpy as np
+
+    n, cols = _rows_by_key(block, "l_orderkey")
+    got = {nm: d.cpu().numpy() for nm, (_, d) in zip(block.names, cols)}
+    if n != len(want["l_orderkey"]):
+        raise AssertionError(f"{name}: {n} groups, numpy {len(want['l_orderkey'])}")
+    for nm in ("l_orderkey", "s", "c"):
+        bad = np.nonzero(got[nm] != want[nm])[0]
+        if len(bad):
+            i = int(bad[0])
+            raise AssertionError(f"{name}: {nm} differs from numpy at {len(bad)} rows, "
+                                 f"first at key {want['l_orderkey'][i]}: {got[nm][i]} "
+                                 f"vs {want[nm][i]}")
+
+
+def q3_arrays(cat) -> dict:
+    """Host numpy copies of the columns ``numpy_q3`` reads."""
+    cols = {"customer": ("c_custkey", "c_mktsegment"),
+            "orders": ("o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"),
+            "lineitem": ("l_orderkey", "l_extendedprice", "l_discount", "l_shipdate")}
+    out = {c: cat[t].block[c].data.numpy() for t, cs in cols.items() for c in cs}
+    out["segment_dict"] = cat["customer"].block["c_mktsegment"].dictionary
+    return out
+
+
+def partition_budget(plan_fn, tables, wanted=(2, 4)) -> tuple:
+    """A ``max_bytes_per_device`` below the plan's estimate
+    (``estimate_plan_bytes`` of the tree the runner runs) whose sizing
+    budget gives the group-partitioned path a partition count in
+    ``wanted`` by the port's own rule (``outofcore._partition_count``).
+    Returns (budget, partitions, estimate)."""
+    from tiflash_tpu_torch.runtime import outofcore as OC
+    from tiflash_tpu_torch.runtime.executor import QueryRunner
+    from tiflash_tpu_torch.runtime.memory import block_bytes, estimate_plan_bytes
+
+    plan = QueryRunner(plan_fn()).plan
+    est = estimate_plan_bytes(plan, tables)
+    spec = OC.groupagg_spec(plan)
+    base = tables[spec["table"]]
+    h = OC._host_key_hash(base, spec["cols"])
+    floor = sum(block_bytes(b) for b in tables.values()) // 64
+    for i in range(63, 0, -1):
+        budget = est * i // 64
+        n_parts = OC._partition_count(block_bytes(base), max(budget, floor), h,
+                                      base.capacity)
+        if n_parts in wanted:
+            return budget, n_parts, est
+    raise AssertionError(f"no budget below {est} B gives {wanted} partitions")
+
+
+def ooc_spy(run) -> tuple:
+    """``run()`` with spies on the two kernels' wrappers: each
+    ``fused_group_sums`` call is one stream_tile launch, each direct_agg
+    ``group_sums`` call one launch per column group
+    (``direct_agg.column_groups``), on the CPU (plain) as on the card.
+    Marks the launches so far at each out-of-core piece's output
+    (``outofcore._to_host_rows``) and keeps each wrapper's first call,
+    cloned.  Returns (run's value, marks [(direct, stream)], totals,
+    first calls by wrapper)."""
+    import torch
+
+    from tiflash_tpu_torch.ops.cuda import direct_agg as DA, stream_tile as ST
+    from tiflash_tpu_torch.runtime import outofcore as OC
+
+    count = {"direct": 0, "stream": 0}
+    marks, first = [], {}
+    real = (DA.group_sums, ST.fused_group_sums, OC._to_host_rows)
+
+    def clone(args):
+        def one(a):
+            if isinstance(a, torch.Tensor):
+                return a.clone()
+            if isinstance(a, list) and all(isinstance(t, torch.Tensor) for t in a):
+                return [t.clone() for t in a]
+            if isinstance(a, dict) and all(isinstance(t, torch.Tensor) for t in a.values()):
+                return {k: t.clone() for k, t in a.items()}
+            return a
+        return tuple(one(a) for a in args)
+
+    def direct(slots, vals, n_slots, out):
+        count["direct"] += len(DA.column_groups(n_slots, len(DA._value_list(vals)) + 1))
+        first.setdefault("direct_agg", clone((slots, vals, n_slots, out)))
+        return real[0](slots, vals, n_slots, out)
+
+    def stream(*args):
+        count["stream"] += 1
+        first.setdefault("stream_tile", clone(args))
+        return real[1](*args)
+
+    def host(block):
+        marks.append((count["direct"], count["stream"]))
+        return real[2](block)
+
+    DA.group_sums, ST.fused_group_sums, OC._to_host_rows = direct, stream, host
+    try:
+        value = run()
+    finally:
+        DA.group_sums, ST.fused_group_sums, OC._to_host_rows = real
+    return value, marks, (count["direct"], count["stream"]), first
+
+
+def per_piece(marks, total, pieces: int) -> tuple:
+    """(launches per piece, launches after the last piece), each as
+    (direct_agg, stream_tile); every piece must launch alike."""
+    incs = [(b[0] - a[0], b[1] - a[1])
+            for a, b in zip([(0, 0)] + marks[:pieces - 1], marks[:pieces])]
+    if len(set(incs)) != 1:
+        raise AssertionError(f"pieces launch unevenly: {incs}")
+    last = marks[pieces - 1]
+    return incs[0], (total[0] - last[0], total[1] - last[1])
+
+
+def outofcore_predictions(cpu_tables) -> dict:
+    """The launches of ``q1_partitioned`` and ``daily_revenue`` predicted
+    by the port's CPU run of the same plans at SF1 (lineitem), through
+    ``QueryRunner`` with the phase's settings (Q1's budget chosen for 2 or
+    4 partitions at SF1 by the same rule): per piece and after the last
+    piece, which the card run scales to its own piece count."""
+    from tiflash_tpu_torch.bench.tpch_queries import q1_plan
+    from tiflash_tpu_torch.runtime.executor import QueryRunner
+    from tiflash_tpu_torch.runtime.settings import Settings
+
+    budget, _, _ = partition_budget(q1_plan, cpu_tables)
+    out = {}
+    for name, plan_fn, s in (
+            ("q1_partitioned", q1_plan, Settings(max_bytes_per_device=budget)),
+            ("daily_revenue", daily_revenue_plan,
+             Settings(max_bytes_before_external_group_by=1))):
+        t0 = time.perf_counter()
+        (_, summary), marks, total, _ = ooc_spy(
+            lambda: QueryRunner(plan_fn(), settings=s).run(cpu_tables))
+        info = summary.out_of_core
+        each, tail = per_piece(marks, total, info["pieces"])
+        out[name] = {"mode": info["mode"], "pieces": info["pieces"], "per_piece": each,
+                     "tail": tail}
+        print(f"{name} sf{SF} cpu prediction: {info['mode']} out-of-core, "
+              f"{info['pieces']} pieces; per piece {each[0]} direct_agg and {each[1]} "
+              f"stream_tile launches, after the last {tail[0]} and {tail[1]} "
+              f"({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def _rows_by_key(block, key: str):
+    """A result's live rows sorted by ``key`` (unique per row), each column
+    as (validity, data with invalid rows zeroed), on its device.  A wide
+    decimal's limbs become int64 where every valid value fits, so a value
+    compares equal in either storage."""
+    import torch
+
+    from tiflash_tpu_torch.core.wide import narrow_i64, resize_wide
+
+    b = block.compact()
+    n = int(b.num_rows())
+    order = torch.argsort(b[key].data[:n], stable=True)
+    out = []
+    for c in b.columns:
+        v = c.valid_mask()[:n][order]
+        d = c.data[:n][order]
+        if d.dim() == 2 and d.dtype == torch.int64:
+            two, ov = resize_wide(d, 2)
+            val, fits = narrow_i64(two)
+            if bool(((fits & ~ov) | ~v).all()):
+                d = val
+        mask = v if d.dim() == 1 else v[:, None]
+        out.append((v, torch.where(mask, d, torch.zeros_like(d))))
+    return n, out
+
+
+def same_rows(a, b, key=None) -> bool:
+    """Two results hold the same rows: decoded and in order (small
+    results), or by a unique key on the card (large ones), NULLs and
+    values.  Types are not compared: an out-of-core final merge sums
+    partial sums, so a decimal sum's type widens as the reference's does
+    (Decimal(37,2) in memory, Decimal(59,2) out of core) and a count
+    becomes nullable; the values are the same."""
+    import torch
+
+    if key is None:
+        return block_result(a)[0] == block_result(b)[0]
+    if a.names != b.names:
+        return False
+    na, ra = _rows_by_key(a, key)
+    nb, rb = _rows_by_key(b, key)
+    return na == nb and all(torch.equal(va, vb) and torch.equal(da, db)
+                            for (va, da), (vb, db) in zip(ra, rb))
+
+
+def outofcore_phase(card: str, cat, q1_want: dict, pred: dict, flush) -> dict:
+    """The reference's SF10 out-of-core rehearsal on the card, on the
+    shared SF10 catalog: each run in memory (``run_query``), then through
+    ``QueryRunner`` with its settings, the counts set to 0 just before and
+    read just after; bit-exact against the in-memory card run (Q3 and Q1
+    also against numpy), in the expected mode, the kernels launched as the
+    CPU dispatch predicts scaled to the card's piece count.  Prints mode,
+    pieces, launches, bytes and chunk files spilled, wall times, device
+    busy time and the allocator's peak against the budget.  Returns the
+    kernels' yardsticks at their first out-of-core call."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tiflash_tpu_torch.bench.tpch_queries import q1_plan, q3_plan
+    from tiflash_tpu_torch.ops import tile_program as TP
+    from tiflash_tpu_torch.ops.cuda import direct_agg as DA, stream_agg as SA
+    from tiflash_tpu_torch.ops.cuda import stream_tile as ST
+    from tiflash_tpu_torch.runtime.executor import QueryRunner, run_query
+    from tiflash_tpu_torch.runtime.memory import block_bytes
+    from tiflash_tpu_torch.runtime.metrics import METRICS
+    from tiflash_tpu_torch.runtime.settings import Settings
+
+    gpu = cat.blocks("cuda")
+    resident = sum(block_bytes(b, shadows=True) for b in gpu.values())
+    t0 = time.perf_counter()
+    want3 = numpy_q3(q3_arrays(cat))
+    want_hc = numpy_hc(cat)
+    q1_budget, q1_parts, q1_est = partition_budget(q1_plan, gpu)
+    print(f"out-of-core phase sf{SF10}: tables on the card {resident} B; numpy q3 and "
+          f"Q1's budget {q1_budget} B (estimate {q1_est} B, {q1_parts} partitions) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    spill_dir = tempfile.mkdtemp(prefix="ooc_spill_")
+    runs = (
+        ("q3_grace", q3_plan, Settings(max_bytes_before_external_join=1,
+                                       spill_dir=spill_dir), "grace", None, want3),
+        ("hc_external", hc_plan, Settings(max_bytes_before_external_group_by=1,
+                                          spill_dir=spill_dir), "chunked", "l_orderkey", None),
+        ("q1_partitioned", q1_plan, Settings(max_bytes_per_device=q1_budget), "groupagg",
+         None, q1_want),
+        ("daily_revenue", daily_revenue_plan, Settings(max_bytes_before_external_group_by=1),
+         "chunked", "l_shipdate", None),
+    )
+    out = {}
+    try:
+        for name, plan_fn, s, mode, key, numpy_want in runs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mem_out, mem_sum = run_query(plan_fn(), gpu)
+            torch.cuda.synchronize()
+            mem_s = time.perf_counter() - t0
+            m0 = METRICS.dump()
+            torch.cuda.synchronize()
+            SA.LAUNCHES = DA.LAUNCHES = ST.LAUNCHES = 0
+            t0 = time.perf_counter()
+            (got, summary), marks, total, first = ooc_spy(
+                lambda: QueryRunner(plan_fn(), settings=s).run(gpu))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = (DA.LAUNCHES, ST.LAUNCHES, SA.LAUNCHES)
+            m1 = METRICS.dump()
+            info = summary.out_of_core
+            if info.get("mode") != mode or f"[{mode} out-of-core]" not in summary.plan_text:
+                raise AssertionError(f"{name}: ran {info.get('mode')}, expected {mode}")
+            if summary.device != "cuda:0" or mem_sum.device != "cuda:0":
+                raise AssertionError(f"{name}: results on {summary.device}/{mem_sum.device}")
+            if name == "hc_external":
+                check_hc(f"{name} in memory", mem_out, want_hc)
+                check_hc(name, got, want_hc)
+            if not same_rows(got, mem_out, key):
+                raise AssertionError(f"{name}: out-of-core rows != in-memory rows")
+            if numpy_want is not None and block_result(got)[0] != numpy_want:
+                raise AssertionError(f"{name}: rows != numpy\n{block_result(got)[0]}\n"
+                                     f"{numpy_want}")
+            if launches[:2] != total or launches[2]:
+                raise AssertionError(f"{name}: launches (direct_agg, stream_tile, planes) "
+                                     f"{launches}, the wrappers' calls give {total}")
+            pieces = info["pieces"]
+            if name in pred:
+                p = pred[name]
+                if p["mode"] != mode:
+                    raise AssertionError(f"{name}: the CPU prediction ran {p['mode']}")
+                want_l = tuple(e * pieces + t for e, t in zip(p["per_piece"], p["tail"]))
+                if launches[:2] != want_l:
+                    raise AssertionError(f"{name}: launches {launches[:2]}, the CPU dispatch "
+                                         f"predicts {want_l} at {pieces} pieces")
+            spilled = int(m1["spill_disk_bytes_total"] - m0["spill_disk_bytes_total"])
+            files = int(m1["spill_chunk_files_total"] - m0["spill_chunk_files_total"])
+            staged = int(m1["spill_bytes_total"] - m0["spill_bytes_total"])
+            if s.spill_dir and not (spilled > 0 and files > 0):
+                raise AssertionError(f"{name}: nothing spilled to {s.spill_dir}")
+            busy = device_busy_ms(lambda: QueryRunner(plan_fn(), settings=s).run(gpu))
+            busy_txt = ("not measured" if busy is None else
+                        f"{busy:.3f} ms (idle {1 - busy / (wall * 1e3):.1%} of the wall)")
+            print(f"{name} sf{SF10} on cuda: [{mode} out-of-core], {pieces} "
+                  f"{'chunks' if mode in ('chunked', 'sliced') else 'partitions'}"
+                  f"{', final merge ' + str(info['merge_buckets']) + ' buckets' if info.get('merge_buckets') else ''}"
+                  f", sizing budget {info['budget_bytes']} B; launches direct_agg "
+                  f"{launches[0]}, stream_tile {launches[1]}, planes kernel {launches[2]}"
+                  f"{' (as predicted)' if name in pred else ''}; spilled {spilled} B in "
+                  f"{files} chunk files ({staged} B staged); wall {wall:.3f} s (kernel builds {summary.compile_seconds:.2f} s), "
+                  f"in memory {mem_s:.3f} s; device busy {busy_txt}; allocator peak "
+                  f"{summary.peak_device_bytes} B (tables {resident} B) against the budget; "
+                  f"{summary.result_rows} rows, bit-exact vs the in-memory card run"
+                  f"{' and numpy' if numpy_want is not None or name == 'hc_external' else ''}"
+                  f" [{card}]")
+            out[name] = {"mode": mode, "pieces": pieces, "wall_s": wall, "in_memory_s": mem_s,
+                         "busy_ms": busy, "launches": launches[:2], "spilled_bytes": spilled,
+                         "spill_files": files, "peak_bytes": summary.peak_device_bytes,
+                         "budget_bytes": info["budget_bytes"], "rows": summary.result_rows}
+            if name == "q1_partitioned":
+                call = first["stream_tile"]
+                y = fused_yardsticks(SA, ST, TP, call, flush, SF10_REPS)
+                y.pop("planes_call")
+                out[name]["stream_tile"] = y
+                print("  " + fused_line(f"{name} (first partition)", y, card))
+            if "direct_agg" in first:
+                call = first["direct_agg"]
+                slots, vals, n_slots, _ = call
+                zeros = torch.zeros((n_slots, len(DA._value_list(vals)) + 1),
+                                    dtype=torch.int64, device="cuda")
+                k = DA.group_sums(slots, vals, n_slots, zeros.clone())
+                pl = DA.group_sums_plain(slots, vals, n_slots, zeros.clone())
+                if not torch.equal(k, pl):
+                    raise AssertionError(f"{name}: direct_agg kernel != plain at a chunk")
+                y = direct_agg_yardsticks(DA, [call], flush)
+                y["max_abs_err"] = int((k - pl).abs().max())
+                out[name]["direct_agg"] = y
+                print("  " + yardstick_line(f"{name} direct_agg (first chunk, S={n_slots})",
+                                            y, card))
+            del got, mem_out, first
+    finally:
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    return out
+
+
+def runtime_controls_phase(card: str, cpu_tables, gpu_tables) -> None:
+    """The runner's controls on the card at SF1, each as on the CPU: a
+    ``CancelFlag`` set from another thread mid-run of an out-of-core query
+    raises ``QueryCancelled``; ``max_execution_time_ms=1`` raises
+    ``QueryTimeout``; ``max_result_rows`` throws in ``throw`` mode and
+    truncates in ``break`` mode; failpoint ``exception_before_fragment_run``
+    raises through ``run_query``."""
+    import threading
+
+    from tiflash_tpu_torch.bench.tpch_queries import q1_plan
+    from tiflash_tpu_torch.runtime.cancel import CancelFlag, QueryCancelled, QueryTimeout
+    from tiflash_tpu_torch.runtime.errors import LIMIT_EXCEEDED, EngineError
+    from tiflash_tpu_torch.runtime.executor import QueryRunner, run_query
+    from tiflash_tpu_torch.runtime.failpoint import FailPoint, FailPointError
+    from tiflash_tpu_torch.runtime.metrics import METRICS
+    from tiflash_tpu_torch.runtime.settings import Settings
+
+    flag = CancelFlag()
+    rows_per_chunk = 20_000
+    n_chunks = -(-gpu_tables["lineitem"].capacity // rows_per_chunk)
+    c0 = METRICS.dump()["ooc_chunks_total"]
+
+    def cancel_after_two_chunks():
+        deadline = time.monotonic() + 60
+        while METRICS.dump()["ooc_chunks_total"] < c0 + 2 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        flag.set()
+
+    th = threading.Thread(target=cancel_after_two_chunks, daemon=True)
+    th.start()
+    s = Settings(max_bytes_before_external_group_by=1, max_spilled_rows_per_file=rows_per_chunk)
+    try:
+        QueryRunner(daily_revenue_plan(), settings=s, cancel=flag).run(gpu_tables)
+        raise AssertionError("the out-of-core query was not cancelled")
+    except QueryCancelled:
+        pass
+    th.join(timeout=60)
+    done = int(METRICS.dump()["ooc_chunks_total"] - c0)
+    if not 2 <= done < n_chunks:
+        raise AssertionError(f"cancelled after {done} of {n_chunks} chunks")
+    print(f"cancel: a flag set from another thread stopped daily_revenue sf{SF} "
+          f"(chunked, {n_chunks} chunks of {rows_per_chunk} rows) after {done} chunks: "
+          f"QueryCancelled [{card}]")
+    try:
+        run_query(q1_plan(), gpu_tables, settings=Settings(max_execution_time_ms=1))
+        raise AssertionError("max_execution_time_ms=1 did not time out")
+    except QueryTimeout:
+        pass
+    full = block_result(run_query(q1_plan(), gpu_tables)[0])[0]
+    for tables in (cpu_tables, gpu_tables):
+        try:
+            run_query(q1_plan(), tables, settings=Settings(max_result_rows=2))
+            raise AssertionError("max_result_rows=2 did not throw")
+        except EngineError as e:
+            if e.code != LIMIT_EXCEEDED:
+                raise
+    brk = Settings(max_result_rows=2, result_overflow_mode="break")
+    got = block_result(run_query(q1_plan(), gpu_tables, settings=brk)[0])
+    if got != block_result(run_query(q1_plan(), cpu_tables, settings=brk)[0]) or \
+            got[0] != {k: v[:2] for k, v in full.items()}:
+        raise AssertionError(f"break mode: {got[0]} is not the CPU's first two rows")
+    FailPoint.enable("exception_before_fragment_run")
+    try:
+        run_query(q1_plan(), gpu_tables)
+        raise AssertionError("the failpoint did not fire")
+    except FailPointError:
+        pass
+    finally:
+        FailPoint.disable_all()
+    print(f"max_execution_time_ms=1: QueryTimeout; max_result_rows=2: LIMIT_EXCEEDED "
+          f"(throw) on the card and the CPU, the first 2 rows (break) equal to the CPU's; "
+          f"exception_before_fragment_run raised through run_query [{card}]")
+
+
+def explain_phase(card: str, gpu7) -> dict:
+    """EXPLAIN ANALYZE of Q7-pairs on the card: per-node subtree and self
+    times (CUDA events after a synchronize; 2 warm and 10 timed rounds);
+    the self times must sum to within 10% of one timed run of the same
+    tree (the median of 10 after the report)."""
+    from tiflash_tpu_torch.bench.tpch_queries import q7_nation_pairs_plan
+    from tiflash_tpu_torch.runtime.analyze import explain_analyze, format_analyze, time_subtree
+    from tiflash_tpu_torch.runtime.executor import QueryRunner
+
+    runner = QueryRunner(q7_nation_pairs_plan())
+    runner.run(gpu7)  # the rewritten, auto-sized tree
+    report = explain_analyze(runner.plan, gpu7, k1=2, k2=10)
+    whole = time_subtree(runner.plan, gpu7, k1=1, k2=10)
+    selfs = [r["self_s"] for r in report]
+    if any(v is None for v in selfs):
+        raise AssertionError(f"q7_pairs: a subtree did not run alone: {report}")
+    total = sum(selfs)
+    print(f"explain analyze q7_pairs sf{SF} [{card}]:")
+    print(format_analyze(report))
+    print(f"  self times sum {total * 1e3:.3f} ms; one timed run of the tree "
+          f"{whole * 1e3:.3f} ms ({total / whole:.1%})")
+    if abs(total - whole) > 0.1 * whole:
+        raise AssertionError(f"q7_pairs: self times sum {total} s, one run {whole} s")
+    return {"self_sum_ms": total * 1e3, "run_ms": whole * 1e3}
 
 
 # ---- the analytic slice: numpy versions and the card phase -------------------
@@ -2228,6 +2727,7 @@ def _main(analytic_cpu) -> int:
             raise AssertionError(f"{name}: port CPU run != numpy\n{cpu_res[name][0]}\n"
                                  f"{np_res[name]}")
     print("cpu reference runs equal numpy for q1 and q6")
+    ooc_pred = outofcore_predictions(cpu_tables)
     t0 = time.perf_counter()
     tile_cases = []
     for c in FC.CASES:
@@ -2260,6 +2760,11 @@ def _main(analytic_cpu) -> int:
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
     generated_build_s = {k: build.BUILD_SECONDS[k] for k in tags}
+    from tiflash_tpu_torch.runtime import spill
+
+    spill.get_lib()
+    print(f"  g++ tiflash_tpu_torch/native/spiller.cpp -lz (the disk spill tier): "
+          f"{spill.BUILD_SECONDS:.2f} s -> {spill.library_path().name}")
 
     t0 = time.perf_counter()
     cat7 = generate_tpch(sf=SF, seed=SEED, tables=Q7_TABLES)
@@ -2383,10 +2888,18 @@ def _main(analytic_cpu) -> int:
                {"q1": cpu_res["q1"], "q6": cpu_res["q6"]})
     sweep_phase(card, cpu_tables, gpu_tables)
     ship = string_phase(card, cpu_tables, gpu_tables, li)
+    runtime_controls_phase(card, cpu_tables, gpu_tables)
     del gpu_tables, cpu_tables
 
-    # ---- 4c. Q1 at SF10: one launch over 60M rows, the two-limb recombination
-    sf10 = sf10_q1_phase(card, flush)
+    # ---- 4c. Q1 at SF10: one launch over 60M rows, the two-limb recombination;
+    # then the out-of-core rehearsal on the same SF10 catalog
+    cat10, gen_s = sf10_catalog()
+    print(f"sf{SF10} catalog: " + ", ".join(f"{t} {cat10[t].row_count}" for t in Q3_TABLES)
+          + f" rows ({', '.join(f'{t}: {len(c)} columns' for t, c in SF10_COLUMNS.items())})"
+          + f" in {gen_s:.1f} s")
+    sf10 = sf10_q1_phase(card, flush, cat10, gen_s)
+    ooc = outofcore_phase(card, cat10, sf10.pop("want"), ooc_pred, flush)
+    del cat10
 
     # ---- 5. Q7 and Q7 over all nation pairs at SF1 on the card -------------------
     gpu7 = cat7.blocks("cuda")
@@ -2435,6 +2948,8 @@ def _main(analytic_cpu) -> int:
                   f"blocks per SM {[g.blocks_per_sm for g in lp]}; 32-byte-sector "
                   f"bound {direct_y['sector_bound_ms']:.4f} ms")
             print("  " + yardstick_line("q7_pairs direct_agg", direct_y, card))
+
+    explain_phase(card, gpu7)
 
     # ---- 6. Q3, Q10, Q4, Q22 and top-N at SF1; top-N over 100M rows --------
     # no kernel is on this path: Q3's stream aggregation has 1.5M groups
@@ -2550,7 +3065,11 @@ def _main(analytic_cpu) -> int:
                 unfused_ms=tile_y["q1"]["unfused_ms"], build_seconds=generated_build_s,
                 **{k: tile_y["q1"][k] for k in design},
                 q6={k: tile_y["q6"][k] for k in keys + ("unfused_ms",) + design},
-                sf10_q1=sf10)
+                sf10_q1=sf10,
+                q1_partitioned={"launches": ooc["q1_partitioned"]["launches"][1],
+                                "partitions": ooc["q1_partitioned"]["pieces"],
+                                **{k: ooc["q1_partitioned"]["stream_tile"][k] for k in
+                                   keys + ("max_abs_err", "unfused_ms")}})
     print(json.dumps({"kernels": [
         # the planes kernel: off the main path since the generated kernel
         # (0 launches there), timed at the planes evaluate makes on the card
@@ -2561,6 +3080,12 @@ def _main(analytic_cpu) -> int:
                    q7_launches, direct_err, direct_y),
              analytics_launches=analytic_launches,
              sector_bound_ms=direct_y["sector_bound_ms"],
+             # l_shipdate has no static key domain: each chunk's partial
+             # takes the sort method, as the CPU dispatch predicts
+             daily_revenue={"launches": ooc["daily_revenue"]["launches"][0],
+                            "chunks": ooc["daily_revenue"]["pieces"],
+                            **{k: ooc["daily_revenue"].get("direct_agg", {}).get(k) for k in (
+                                "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}},
              ship_month={"launches": ship["launches"],
                          "max_abs_err": ship["max_abs_err"],
                          **{k: ship["yardsticks"][k] for k in (

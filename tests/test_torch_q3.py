@@ -13,6 +13,7 @@ and the independent numpy versions of these queries in
 import pytest
 
 from tiflash_tpu.bench import tpch_queries as JQ
+from tiflash_tpu.plan import nodes as JP
 from tiflash_tpu.runtime.executor import run_query as j_run
 from tiflash_tpu.runtime.settings import Settings
 from tiflash_tpu.storage.tpch import generate_tpch as j_generate
@@ -56,6 +57,24 @@ def _result(block):
     return block.to_pylists(), [repr(c.dtype) for c in block.columns]
 
 
+def reference_slots(j_plan, j_tables, rewrites=True):
+    """The ``num_slots`` of each Aggregation (DFS order) in the tree the
+    reference's runner runs: rewritten, then auto-sized."""
+    from tiflash_tpu.plan.auto import autosize_plan
+    from tiflash_tpu.plan.rewrite import eager_aggregation, prune_columns
+
+    if rewrites:
+        j_plan = prune_columns(eager_aggregation(j_plan))
+    autosize_plan(j_plan, j_tables)
+    out, stack = [], [j_plan]
+    while stack:
+        n = stack.pop()
+        if isinstance(n, JP.Aggregation):
+            out.append(n.num_slots)
+        stack.extend(reversed(n.children))
+    return out
+
+
 def _dispatch_spy(monkeypatch):
     """Record which aggregation method each Aggregation took."""
     calls = []
@@ -90,15 +109,16 @@ def test_run_query_matches_reference(catalogs, monkeypatch, query):
     assert summary.result_rows == int(want.num_rows())
     assert summary.device == "cpu"
     assert TSF.FUSE_STATS["count"] == fused  # no aggregation here fuses
-    lineitem = t_cat["lineitem"].row_count
+    # the runner's auto-sized capacities, the reference's
+    slots = reference_slots(j_plan(), j_tables, rewrites) or [None]
     expected = {
         # the pushed single-key aggregation over the clustered scan
-        "q3": [("stream", ["l_orderkey"], lineitem)],
+        "q3": [("stream", ["l_orderkey"], slots[0])],
         # three keys over the joined rows
         "q3_no_rewrite": [("sort", ["l_orderkey", "o_orderdate", "o_shippriority"],
-                           lineitem)],
+                           slots[0])],
         # o_custkey after a join is not clustered
-        "q10": [("sort", ["c_custkey"], lineitem)],
+        "q10": [("sort", ["c_custkey"], slots[0])],
         # 5 priorities: the direct method's masked sub-method
         "q4": [("direct", ["o_orderpriority"], 5)],
         "q22": [],

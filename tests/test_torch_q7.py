@@ -74,9 +74,27 @@ def _result(block):
     return block.to_pylists(), [repr(c.dtype) for c in block.columns]
 
 
+def reference_slots(j_plan, j_tables, rewrites=True):
+    """The ``num_slots`` of each Aggregation (DFS order) in the tree the
+    reference's runner runs: rewritten, then auto-sized."""
+    from tiflash_tpu.plan.auto import autosize_plan
+    from tiflash_tpu.plan.rewrite import eager_aggregation, prune_columns
+
+    if rewrites:
+        j_plan = prune_columns(eager_aggregation(j_plan))
+    autosize_plan(j_plan, j_tables)
+    out, stack = [], [j_plan]
+    while stack:
+        n = stack.pop()
+        if isinstance(n, JP.Aggregation):
+            out.append(n.num_slots)
+        stack.extend(reversed(n.children))
+    return out
+
+
 @pytest.mark.parametrize("query", ["q7", "q7_pairs"])
 def test_run_query_matches_reference(catalogs, reference_results, monkeypatch, query):
-    _, t_cat = catalogs
+    j_tables, t_cat = catalogs
     dispatched = []
     real_direct, real_sort = TA.aggregate_direct, TA.aggregate_sort
     monkeypatch.setattr(TA, "aggregate_direct", lambda b, k, a, sd, use_kernel=None: (
@@ -101,8 +119,9 @@ def test_run_query_matches_reference(catalogs, reference_results, monkeypatch, q
     assert summary.result_rows == int(want.num_rows()) > 0
     assert TSF.FUSE_STATS["count"] == fused  # the fuse declined over the joins
     if query == "q7":
-        lineitem = t_cat["lineitem"].row_count
-        assert dispatched == [("sort", lineitem)] and kernel_calls == []
+        # the runner's auto-sized capacity, the reference's
+        slots = reference_slots(J_PLANS[query](), j_tables)
+        assert dispatched == [("sort", slots[0])] and kernel_calls == []
     else:
         # each nation key is nullable after its join: 26 x 26 slots
         assert dispatched == [("direct", 676, None)] and kernel_calls == [676]

@@ -34,8 +34,10 @@ patterns (``torch.uint64`` lacks the ops) by a segmented scan over rows
 sorted by group, and return BIGINT UNSIGNED, never NULL.  Float sums
 (sum, avg, the variance moments) add in another order than the
 reference's, so they agree to rounding, within the bound each test
-states.  The distributed forms (``approx_cd_partial``/``approx_cd_final``)
-and ``mode="auto"`` raise: they come with the distribution slice.
+states.  ``auto_passthrough_aggregate`` (``mode="auto"``) aggregates or
+passes rows through in partial shape (``passthrough_as_partial``) by a
+sampled key-hash NDV.  The distributed forms (``approx_cd_partial``/
+``approx_cd_final``) raise: they come with the distribution slice.
 """
 
 from __future__ import annotations
@@ -1297,6 +1299,111 @@ def aggregate_scalar(block: Block, aggs: Sequence[AggDesc]) -> Block:
                  columns=tuple(c for _, c in acc), sel=None)
 
 
+def passthrough_as_partial(block: Block, keys: Sequence[str],
+                           aggs: Sequence[AggDesc]) -> Block:
+    """Raw rows in partial-aggregate shape, each live row its own group:
+    sum -> the value, count -> 0/1, min/max -> the value, bit aggregates
+    -> the bit pattern (the identity where NULL).  The auto-passthrough
+    path's second form; a final aggregation merges it like any partial."""
+    cols = {k: block[k] for k in keys}
+    live = block.sel_mask()
+    for a in aggs:
+        col = block[a.arg] if a.arg is not None else None
+        rdt = agg_result_dtype(a.func, col.dtype if col else None)
+        if a.func == "count":
+            ones = live.to(torch.int64)
+            if col is not None and col.validity is not None:
+                ones = ones * col.validity.to(torch.int64)
+            cols[a.name] = Column(ones, None, INT64)
+        elif a.func == "sum":
+            acc = torch.float64 if col.dtype.is_float else torch.int64
+            cols[a.name] = Column(col.data.to(acc).to(rdt.torch_dtype),
+                                  col.validity, rdt)
+        elif a.func in ("min", "max"):
+            cols[a.name] = Column(col.data.to(rdt.torch_dtype), col.validity,
+                                  rdt, col.dictionary)
+        elif a.func in _BIT_FUNCS:
+            from ..expr.functions import _u64
+
+            valid = (col.validity if col.validity is not None
+                     else torch.ones_like(live))
+            cols[a.name] = Column(_u64(_bit_values(col, valid, a.func)), None, rdt)
+        else:
+            raise NotImplementedError(
+                f"passthrough for {a.func} (decompose avg first)")
+    return Block.from_dict(cols, sel=block.sel)
+
+
+def auto_passthrough_aggregate(
+    block: Block,
+    keys: Sequence[str],
+    aggs: Sequence[AggDesc],
+    passthrough_ratio: float = 0.5,
+) -> AggregateResult:
+    """Adaptive first-stage aggregation (``mode="auto"``): aggregate, or
+    pass rows through unreduced when a strided sample of 2048 rows shows
+    more distinct key hashes than ``passthrough_ratio`` of its live rows.
+    A packed key domain up to ``DIRECT_DOMAIN_LIMIT`` always aggregates.
+    The reference computes both forms and selects with ``lax.cond``; here
+    the sample's verdict is read on the host (one sync) and only the
+    chosen form runs.  Either way the columns carry the aggregate's
+    result types with materialized validity, and no stats."""
+    rw = _wide_rewrite(block, aggs)
+    post = None
+    if rw is not None:
+        block, aggs, post = rw
+
+    def fin(res: AggregateResult) -> AggregateResult:
+        if post is None:
+            return res
+        return AggregateResult(post(res.block), res.num_groups, res.overflow)
+
+    dev = block.device
+    if not keys:
+        b = aggregate_scalar(block, aggs)
+        return fin(AggregateResult(b, torch.ones((), dtype=torch.int32, device=dev),
+                                   torch.zeros((), dtype=torch.int64, device=dev)))
+    key_cols = [block[k] for k in keys]
+    packed = pack_keys_direct(key_cols)
+    if packed is not None and packed[1] <= DIRECT_DOMAIN_LIMIT:
+        # tiny domain: always aggregate, never pass through
+        return fin(aggregate_direct(block, keys, aggs, packed))
+    from .hashing import hash_columns
+
+    n = block.capacity
+    sample_n = min(2048, n)
+    stride = max(1, n // sample_n)
+    idx = torch.arange(sample_n, dtype=torch.int64, device=dev) * stride
+    sentinel = 0xFFFFFFFF
+    hs = hash_columns(key_cols)[idx]
+    live_s = block.sel_mask()[idx]
+    hs = torch.where(live_s, hs, torch.full_like(hs, sentinel))
+    hs_sorted = torch.sort(hs).values
+    first = torch.ones_like(hs_sorted, dtype=torch.bool)
+    first[1:] = hs_sorted[1:] != hs_sorted[:-1]
+    uniq = int((first & (hs_sorted != sentinel)).sum())
+    n_sample_live = max(int(live_s.sum()), 1)
+    use_pass = float(uniq) > passthrough_ratio * float(n_sample_live)
+
+    names = list(keys) + [a.name for a in aggs]
+    if use_pass:
+        out = passthrough_as_partial(block, keys, aggs).select(names)
+        groups = block.num_rows().to(torch.int64)
+    else:
+        res = aggregate_sort(block, keys, aggs, num_slots=n)
+        out, groups = res.block, res.num_groups.to(torch.int64)
+    schema = [(k, block[k].dtype, block[k].dictionary) for k in keys] + [
+        (a.name,
+         agg_result_dtype(a.func, block[a.arg].dtype if a.arg else None),
+         block[a.arg].dictionary if a.arg and a.func in ("min", "max") else None)
+        for a in aggs]
+    cols = tuple(Column(c.data, c.valid_mask(), dt_, dic)
+                 for c, (_, dt_, dic) in zip(out.columns, schema))
+    blk = Block(names=tuple(names), columns=cols, sel=out.sel_mask())
+    return fin(AggregateResult(blk, groups,
+                               torch.zeros((), dtype=torch.int64, device=dev)))
+
+
 def hash_aggregate(
     block: Block,
     keys: Sequence[str],
@@ -1360,6 +1467,7 @@ def _dispatch_aggregate(
 
 __all__ = [
     "AggDesc", "AggregateResult", "hash_aggregate", "aggregate_direct",
+    "auto_passthrough_aggregate", "passthrough_as_partial",
     "aggregate_sort", "aggregate_stream", "aggregate_scalar", "agg_result_dtype",
     "key_domain_size",
     "pack_keys_direct", "unpack_keys_direct", "DIRECT_DOMAIN_LIMIT",

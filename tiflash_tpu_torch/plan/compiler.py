@@ -40,7 +40,7 @@ from ..core.block import Block
 from ..expr.compile import ExprEvaluator
 from ..expr.nodes import ColumnRef
 from ..exchange.skew import concat_blocks
-from ..ops.aggregate import hash_aggregate
+from ..ops.aggregate import auto_passthrough_aggregate, hash_aggregate
 from ..ops.expand import expand_block
 from ..ops.join import cross_join, hash_join_with_tail
 from ..ops.sort import limit_block, sort_block, top_n
@@ -151,11 +151,12 @@ def _exec_node(node: P.PlanNode, tables: Dict[str, Block], diag: Diagnostics,
                 diag.rows[nid] = res.num_groups
                 return res.block
         child = child_of(node.child)
-        if node.mode is not None:
-            raise NotImplementedError(
-                f"aggregation mode {node.mode!r} comes with the distribution "
-                "slice of the port")
-        res = hash_aggregate(child, list(node.keys), list(node.aggs), node.num_slots)
+        # "partial" and "final" are tags: both run the method dispatch
+        if node.mode == "auto":
+            res = auto_passthrough_aggregate(child, list(node.keys), list(node.aggs))
+        else:
+            res = hash_aggregate(child, list(node.keys), list(node.aggs),
+                                 node.num_slots)
         diag.overflows[nid] = res.overflow
         diag.rows[nid] = res.num_groups
         return res.block

@@ -7,8 +7,8 @@ the fragment compiler reduces such rows to scalar flags under
 ``RTERR_PREFIX`` beside the capacity-overflow flags, and the host raises
 after execution.  The producers of per-row errors are the string and
 JSON tables of ``expr/``; the drain is ``plan/compiler.py``'s and the
-raise ``runtime/executor.py``'s.  ``classify`` and ``error_payload`` come
-with the runtime modules they read (cancel, failpoint, memory, metrics).
+raise ``runtime/executor.py``'s.  ``classify`` maps any exception to a
+code and ``error_payload`` makes the JSON error body.
 """
 
 from __future__ import annotations
@@ -102,5 +102,47 @@ def raise_runtime_errors(err_flags: Dict) -> None:
             raise EngineError(msg, RUNTIME_EVAL)
 
 
-__all__ = ["EngineError", "EvalError", "error_name", "split_runtime_errors",
-           "raise_runtime_errors", "RTERR_PREFIX"]
+def classify(exc: BaseException) -> int:
+    """Map any exception to a registry code (the gRPC-status analog)."""
+    from .cancel import QueryCancelled
+    from .failpoint import FailPointError
+    from .memory import MemoryLimitError
+
+    if isinstance(exc, EngineError):
+        return exc.code
+    if isinstance(exc, QueryCancelled):
+        return CANCELLED
+    if isinstance(exc, MemoryLimitError):
+        return MEMORY_LIMIT
+    if isinstance(exc, FailPointError):
+        return FAILPOINT
+    if isinstance(exc, KeyError):
+        return UNKNOWN_COLUMN
+    if isinstance(exc, NotImplementedError):
+        return UNSUPPORTED
+    if isinstance(exc, (TypeError, ValueError)):
+        return BAD_PLAN
+    msg = str(exc)
+    if "capacity" in msg and "overflow" in msg:
+        return CAPACITY_OVERFLOW
+    if "resource group" in msg:
+        return RESOURCE_EXHAUSTED
+    return INTERNAL
+
+
+def error_payload(exc: BaseException) -> Dict:
+    """JSON error body: message + stable code + name."""
+    code = classify(exc)
+    from .metrics import METRICS
+
+    METRICS.counter(f"errors_total_code_{code}").inc()
+    return {
+        "error": f"{type(exc).__name__}: {exc}",
+        "code": code,
+        "code_name": error_name(code),
+    }
+
+
+__all__ = ["EngineError", "EvalError", "classify", "error_payload",
+           "error_name", "split_runtime_errors", "raise_runtime_errors",
+           "RTERR_PREFIX"]

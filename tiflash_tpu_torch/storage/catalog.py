@@ -3,6 +3,7 @@
 Counterpart of ``tiflash_tpu/storage/catalog.py``.  Tables are built from
 numpy arrays into CPU tensors; ``Catalog.blocks(device)`` hands them out
 on the device the caller names (one copy per device, kept).
+``Catalog.append`` adds rows, merging string dictionaries.
 
 ``blocks_from_numpy`` builds port Blocks from plain numpy arrays and type
 descriptors — the form ``testing/bridge.py:export_blocks`` produces — so a
@@ -55,6 +56,23 @@ def encode_strings(values: np.ndarray) -> Tuple[np.ndarray, Tuple[str, ...]]:
     """Sort-order dictionary encoding of a numpy string array."""
     uniq, codes = np.unique(values, return_inverse=True)
     return codes.astype(np.int32), tuple(uniq.tolist())
+
+
+def _merge_dictionaries(a: Column, b: Column):
+    """Re-encode two dictionary string columns into one merged sorted
+    dictionary (codes stay order-preserving)."""
+    da = a.dictionary or ()
+    db = b.dictionary or ()
+    merged = tuple(sorted(set(da) | set(db)))
+    rank = {s: i for i, s in enumerate(merged)}
+
+    def remap(col, src):
+        table = torch.tensor([rank[s] for s in src] or [0], dtype=torch.int32,
+                             device=col.data.device)
+        data = table[col.data.clamp(0, max(len(src) - 1, 0)).long()]
+        return Column(data, col.validity, col.dtype, merged)
+
+    return remap(a, da), remap(b, db)
 
 
 def _to_device(block: Block, device) -> Block:
@@ -120,6 +138,31 @@ class Catalog:
             row_count=block.capacity,
         )
         self.tables[name] = td
+        self._on_device = {k: v for k, v in self._on_device.items()
+                           if k[0] != name}
+        return td
+
+    def append(self, name: str, columns: Dict[str, Column]) -> TableDef:
+        """Append rows to a table (host-side block concatenation; string
+        dictionaries merge order-preservingly).  The appended table has
+        no stats and no clustering, as the reference's."""
+        td = self.tables[name]
+        new_block = Block.from_dict(columns)
+        merged_cols: Dict[str, Column] = {}
+        for cname in td.block.names:
+            a = td.block[cname]
+            b = new_block[cname]
+            if a.dtype.is_string:
+                a, b = _merge_dictionaries(a, b)
+            data = torch.cat([a.data, b.data])
+            if a.validity is None and b.validity is None:
+                validity = None
+            else:
+                validity = torch.cat([a.valid_mask(), b.valid_mask()])
+            merged_cols[cname] = Column(data, validity, a.dtype, a.dictionary)
+        # appended rows break adjacency at the seam: clustering is dropped
+        td.block = Block.from_dict(merged_cols)
+        td.row_count = td.block.capacity
         self._on_device = {k: v for k, v in self._on_device.items()
                            if k[0] != name}
         return td
