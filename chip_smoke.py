@@ -59,7 +59,21 @@ random data from seed 0:
   method over 1.5M orders, Q1 over a Union of the partitions, Q13 as a
   right and as a full outer join, and NOT IN with and without a NULL in
   its subquery (``analytics_phase``), with no kernel, as the CPU dispatch
-  predicts.
+  predicts;
+- the product slice (``vector_phase``, ``loader_phase``,
+  ``service_phase``): exact vector search over a 1,000,000 x 128 float32
+  corpus made on the host from a seed (64 queries, k = 100, every metric)
+  against numpy float64 and the port's CPU run within (d + 4) float32
+  ulps, and one ANN plan through ``run_query``; SF1 lineitem written as
+  dbgen .tbl text, parsed by the port's native loader
+  (``tiflash_tpu_torch/native/loader.cpp``, built with ``g++``), cached and
+  reloaded, every column equal to the generated one, Q1/Q6 over it with
+  one generated launch each, and the CLI's ``query`` in its own process;
+  the HTTP query service over the eight-table catalog on the card (Q1 one
+  stream_tile launch, Q7-pairs one direct_agg launch, Q3 none, each equal
+  to its direct ``run_query``), four requests at once, one async, the
+  cancel of a running out-of-core request, a failpoint, a system table and
+  /status, each request's HTTP wall beside its direct run.
 
 Each kernel is held against its plain version (``torch.equal``) on edge
 cases, and timed at the query's own arguments beside one ``index_add_``
@@ -2659,6 +2673,496 @@ def analytics_phase(card: str, cat, cat8, cpu: dict) -> dict:
     return launches
 
 
+# ---- the product slice: vectors, the .tbl loader, the HTTP service -------------
+
+VEC_ROWS = 1_000_000           # tools/vector_bench.py's shape
+VEC_DIMS = 128
+VEC_QUERIES = 64
+VEC_K = 100
+VEC_SEED = 11
+VEC_DUP = 10                   # rows 1000.. copy row 123, query 0 is row 123
+VEC_ULP_SLACK = 4              # the bound of tests/torch_vector_bounds.py
+VEC_L1_QUERIES = 8             # l1's CPU run and whole-corpus numpy check
+FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+EPS32 = 2.0 ** -23
+
+
+def vector_data():
+    """The corpus (VEC_ROWS, VEC_DIMS) and the queries, float32 from
+    VEC_SEED; row 123 repeats at rows 1000..1009 and is query 0, so every
+    metric meets exact ties."""
+    import numpy as np
+
+    rng = np.random.default_rng(VEC_SEED)
+    x = rng.standard_normal((VEC_ROWS, VEC_DIMS), dtype=np.float32)
+    x[1000:1000 + VEC_DUP] = x[123]
+    q = rng.standard_normal((VEC_QUERIES, VEC_DIMS), dtype=np.float32)
+    q[0] = x[123]
+    return x, q
+
+
+def vector_truth(metric: str, x, q):
+    """(q, n) float64 distances of float32 rows, and each one's bound:
+    (d + VEC_ULP_SLACK) float32 ulps of the magnitude the sum is made of,
+    through the square root for l2."""
+    import numpy as np
+
+    d = x.shape[1]
+    x64, q64 = x.astype(np.float64), q.astype(np.float64)
+    unit = (d + VEC_ULP_SLACK) * EPS32
+    if metric == "l1":
+        s = np.stack([np.abs(x64 - qi).sum(axis=1) for qi in q64])
+        return s, unit * s
+    nq, nx = np.linalg.norm(q64, axis=1), np.linalg.norm(x64, axis=1)
+    dot = q64 @ x64.T
+    if metric == "l2":
+        s = np.maximum(nq[:, None] ** 2 - 2 * dot + nx[None, :] ** 2, 0)
+        b = unit * (nq[:, None] + nx[None, :]) ** 2
+        return np.sqrt(s), np.sqrt(s + b) - np.sqrt(np.maximum(s - b, 0))
+    if metric == "cosine":
+        return 1 - dot / np.maximum(nq[:, None] * nx[None, :], 1e-30), \
+            np.full(dot.shape, unit * 3)
+    return -dot, unit * (np.abs(q64) @ np.abs(x64).T)
+
+
+def check_search(name: str, dist, idx, truth, bound, other=None) -> dict:
+    """Distances within the bound of the float64 truth; no row missed by
+    more than its bound; and against ``other`` (dist, idx) the same
+    indices but where both rows' truths lie within their bounds."""
+    import numpy as np
+
+    dist, idx = dist.cpu().numpy().astype(np.float64), idx.cpu().numpy().astype(np.int64)
+    worst, moved = 0.0, 0
+    for qi in range(idx.shape[0]):
+        t, b = truth[qi], bound[qi]
+        err = np.abs(dist[qi] - t[idx[qi]])
+        if np.any(err > b[idx[qi]]):
+            raise AssertionError(f"{name}: query {qi} distance off by more than its bound")
+        worst = max(worst, float((err / np.maximum(b[idx[qi]], 1e-300)).max()))
+        if np.any(np.diff(dist[qi]) < 0):
+            raise AssertionError(f"{name}: query {qi} not sorted best first")
+        nearer = np.flatnonzero(t + b < t[idx[qi][-1]] - b[idx[qi][-1]])
+        if len(np.setdiff1d(nearer, idx[qi])):
+            raise AssertionError(f"{name}: query {qi} missed a nearer row")
+        if other is not None:
+            o_idx = other[1][qi]
+            diff = idx[qi] != o_idx
+            moved += int(diff.sum())
+            gap = np.abs(t[idx[qi]] - t[o_idx])
+            if np.any(gap[diff] > (b[idx[qi]] + b[o_idx])[diff]):
+                raise AssertionError(f"{name}: query {qi} index differs beyond the bound")
+    return {"worst_share_of_bound": worst, "indices_moved": moved}
+
+
+def vector_phase(card: str) -> dict:
+    """Batched exact search over a 1M x 128 float32 corpus on the card
+    (``ops/vector.py``), every metric held to numpy float64 and to the
+    port's CPU run; one ANN plan through ``run_query``; times."""
+    import numpy as np
+    import torch
+
+    from tiflash_tpu_torch.core.block import Block, Column
+    from tiflash_tpu_torch.core.dtypes import INT64, Vector
+    from tiflash_tpu_torch.expr.nodes import call, col, lit
+    from tiflash_tpu_torch.ops.sort import SortKey
+    from tiflash_tpu_torch.ops.vector import batched_min_k, vector_search
+    from tiflash_tpu_torch.plan import nodes as P
+    from tiflash_tpu_torch.runtime.executor import run_query
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 products are on: the search must stay float32")
+    t0 = time.perf_counter()
+    x, q = vector_data()
+    xc, qc = torch.from_numpy(x).cuda(), torch.from_numpy(q).cuda()
+    card_col = Column(xc, None, Vector(VEC_DIMS))
+    cpu_col = Column(torch.from_numpy(x), None, Vector(VEC_DIMS))
+    torch.cuda.synchronize()
+    print(f"vector corpus {VEC_ROWS} x {VEC_DIMS} float32 ({x.nbytes} B on the card), "
+          f"{VEC_QUERIES} queries, k={VEC_K}: made in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for metric in ("l2", "cosine", "inner_product", "l1"):
+        t0 = time.perf_counter()
+        dist, idx = vector_search(card_col, qc, VEC_K, metric=metric)
+        torch.cuda.synchronize()
+        if dist.shape != (VEC_QUERIES, VEC_K) or idx.dtype != torch.int32 or not dist.is_cuda:
+            raise AssertionError(f"{metric}: result {tuple(dist.shape)} {idx.dtype}")
+        nq = VEC_L1_QUERIES if metric == "l1" else VEC_QUERIES
+        truth, bound = vector_truth(metric, x, q[:nq])
+        cpu = vector_search(cpu_col, torch.from_numpy(q[:nq]), VEC_K, metric=metric)
+        vs_cpu = check_search(f"{metric} card vs cpu", dist[:nq], idx[:nq], truth, bound,
+                              other=(None, cpu[1].numpy()))
+        check_search(f"{metric} cpu", cpu[0], cpu[1], truth, bound)
+        if metric == "l1":  # the other queries: their rows' distances
+            rows = idx.cpu().numpy().astype(np.int64)
+            t_l1 = np.abs(x[rows].astype(np.float64) - q[:, None, :]).sum(axis=-1)
+            if np.any(np.abs(dist.cpu().numpy() - t_l1) > (VEC_DIMS + VEC_ULP_SLACK) * EPS32
+                      * t_l1):
+                raise AssertionError("l1: a distance off by more than its bound")
+        first = idx[0, :1 + VEC_DUP].tolist()
+        if metric != "inner_product" and first != [123] + list(range(1000, 1000 + VEC_DUP)):
+            raise AssertionError(f"{metric}: the exact ties of query 0 came as {first}")
+        out[metric] = vs_cpu
+        print(f"vector {metric}: within (d+{VEC_ULP_SLACK}) float32 ulps of numpy float64 "
+              f"and of the port's CPU run ({nq} queries, all rows): largest error "
+              f"{vs_cpu['worst_share_of_bound']:.3f} of the bound, {vs_cpu['indices_moved']} "
+              f"indices differ from the CPU run within it; query 0's ties in index order "
+              f"({time.perf_counter() - t0:.1f} s)")
+    del truth, bound
+
+    # one ANN plan: TopN(d, k) <- Projection(d = vec_l2_distance(v, q0))
+    table = {"vt": Block.from_dict({
+        "id": Column(torch.arange(VEC_ROWS, dtype=torch.int64, device="cuda"), None, INT64),
+        "v": card_col})}
+    def ann_plan():
+        return P.TopN([SortKey("d")], VEC_K, P.Projection(
+            {"id": col("id"), "d": call("vec_l2_distance", col("v"), lit(q[0].tolist()))},
+            P.TableScan("vt")))
+
+    res, summary = run_query(ann_plan(), table)
+    got = res.to_pylists()
+    l2 = np.sqrt(((x.astype(np.float64) - q[0].astype(np.float64)) ** 2).sum(axis=1))
+    unit = (VEC_DIMS + VEC_ULP_SLACK) * EPS32
+    b = np.sqrt(l2 ** 2 * (1 + unit)) - np.sqrt(l2 ** 2 * (1 - unit))
+    ids = np.asarray(got["id"])
+    want = np.argsort(l2, kind="stable")[:VEC_K]
+    if summary.device != "cuda:0" or len(ids) != VEC_K:
+        raise AssertionError(f"ann plan: {len(ids)} rows on {summary.device}")
+    if np.any(np.abs(np.asarray(got["d"]) - l2[ids]) > b[ids]) or np.any(
+            np.abs(l2[ids] - l2[want]) > (b[ids] + b[want])):
+        raise AssertionError("ann plan: rows differ from numpy beyond the bound")
+    if ids[:1 + VEC_DUP].tolist() != [123] + list(range(1000, 1000 + VEC_DUP)):
+        raise AssertionError(f"ann plan: ties {ids[:1 + VEC_DUP].tolist()}")
+    plan = ann_plan()
+    ann_ms = time_ms(lambda: run_query(plan, table), WARM_RUNS)
+    print(f"vector ann plan on cuda: TopN(d, {VEC_K}) over {VEC_ROWS} rows, ids equal numpy's "
+          f"but within the bound ({int((ids != want).sum())} differ), ties in index order; "
+          f"run_query median {ann_ms:.3f} ms over {WARM_RUNS} warm runs [{card}]")
+
+    # times: the whole search, the product alone, the selection alone
+    score = torch.empty((VEC_QUERIES, VEC_ROWS), device="cuda")
+    times = {m: time_ms(lambda m=m: vector_search(card_col, qc, VEC_K, metric=m), KERNEL_REPS)
+             for m in ("l2", "cosine", "inner_product", "l1")}
+    mm_ms = time_ms(lambda: torch.matmul(qc, xc.T, out=score), KERNEL_REPS)
+    topk_ms = time_ms(lambda: batched_min_k(score, VEC_K), KERNEL_REPS)
+    flops = 2.0 * VEC_QUERIES * VEC_ROWS * VEC_DIMS
+    bytes_ms = (x.nbytes + q.nbytes + VEC_QUERIES * VEC_K * 8) / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(bytes_ms, mm_ms)
+    print(f"vector search l2 {times['l2']:.4f} ms, cosine {times['cosine']:.4f}, "
+          f"inner_product {times['inner_product']:.4f}, l1 {times['l1']:.4f} (median of "
+          f"{KERNEL_REPS}, CUDA events); the fp32 product alone {mm_ms:.4f} ms "
+          f"({flops / mm_ms / 1e9:.1f} TFLOP/s of {FP32_OPS_PER_S / 1e12:.0f}; "
+          f"{flops / FP32_OPS_PER_S * 1e3:.4f} ms at peak), the top-k alone {topk_ms:.4f} ms; "
+          f"bound max(bytes {bytes_ms:.4f}, product {mm_ms:.4f}) = {bound_ms:.4f} ms, l2 at "
+          f"{bound_ms / times['l2']:.1%} of it [{card}]")
+    del score, table, xc, card_col
+    torch.cuda.empty_cache()
+    return {"ms": times, "matmul_ms": mm_ms, "topk_ms": topk_ms, "bound_ms": bound_ms,
+            "ann_ms": ann_ms, "checks": out}
+
+
+SHIP_INSTRUCT = ("COLLECT COD", "DELIVER IN PERSON", "NONE", "TAKE BACK RETURN")
+
+
+def loader_phase(card: str, cat, cpu_res: dict, np_res: dict) -> dict:
+    """SF1 lineitem written as dbgen .tbl (set-up), parsed by the port's
+    native loader, cached and reloaded; every column against the generated
+    catalog's; Q1/Q6 on the loaded catalog on the card; the CLI's query
+    command on the same directory."""
+    import os
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from tiflash_tpu_torch.bench.tpch_queries import q1_plan, q6_plan
+    from tiflash_tpu_torch.ops.cuda import stream_tile as ST
+    from tiflash_tpu_torch.plan import serde
+    from tiflash_tpu_torch.runtime.executor import run_query
+    from tiflash_tpu_torch.storage import native_loader as NL
+    from tiflash_tpu_torch.testing.tbl import fields_of, write_tbl
+
+    root = Path(__file__).resolve().parent
+    d = root / "tiflash_tpu_torch" / "build" / "tbl"
+    d.mkdir(parents=True, exist_ok=True)
+    path, cache = d / "lineitem.tbl", d / "lineitem.tbl.tfc"
+    for p in (path, cache):
+        if p.exists():
+            p.unlink()
+    n = cat["lineitem"].row_count
+    instr = np.random.default_rng(SEED).integers(0, 4, n).astype(np.int32)
+    schema = NL.TPCH_SCHEMAS["lineitem"]
+    t0 = time.perf_counter()
+    size = write_tbl(str(path), fields_of(cat["lineitem"].block.as_dict(), schema,
+                                          {"l_shipinstruct": ("string", instr, SHIP_INSTRUCT)}))
+    write_s = time.perf_counter() - t0
+    NL.get_lib()
+    print(f"lineitem sf{SF} as .tbl: {n} rows, {size} B written in {write_s:.1f} s (set-up); "
+          f"g++ tiflash_tpu_torch/native/loader.cpp: {NL.BUILD_SECONDS:.2f} s -> "
+          f"{NL.library_path().name}")
+    t0 = time.perf_counter()
+    parsed = NL.load_table(str(path), schema)
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    NL.save_table(str(d / "saved.tfc"), parsed)  # the TFC1 write alone
+    save_s = time.perf_counter() - t0
+    (d / "saved.tfc").unlink()
+    del parsed
+    NL.load_table(str(path), schema, cache=str(cache))  # parse again, keep its cache
+    os.rename(path, str(path) + ".away")  # the reload must come from the cache
+    try:
+        t0 = time.perf_counter()
+        loaded = NL.load_tpch_dir(str(d), ["lineitem"])
+        load_s = time.perf_counter() - t0
+    finally:
+        os.rename(str(path) + ".away", path)
+    gen, got = cat["lineitem"].block.as_dict(), loaded["lineitem"].block.as_dict()
+    for name, c in gen.items():
+        if not torch.equal(got[name].data, c.data) or got[name].dictionary != c.dictionary:
+            raise AssertionError(f"loader: column {name} differs from the generated one")
+    if got["l_shipinstruct"].dictionary != SHIP_INSTRUCT or not np.array_equal(
+            got["l_shipinstruct"].data.numpy(), instr):
+        raise AssertionError("loader: l_shipinstruct differs from what was written")
+    print(f"loader: {len(got)} columns equal the generated catalog's (data torch.equal, "
+          f"dictionaries equal); parse {parse_s:.3f} s at the default thread count "
+          f"({size / parse_s / 1e6:.1f} MB/s, {n / parse_s / 1e6:.2f} M rows/s), cache save "
+          f"(save_table of the parsed columns) {save_s:.3f} s, cache load {load_s:.3f} s "
+          f"({cache.stat().st_size} B) [{card}]")
+
+    tables = loaded.blocks("cuda")
+    torch.cuda.synchronize()
+    ST.LAUNCHES = 0
+    launches = {}
+    for name, plan_fn in (("q1", q1_plan), ("q6", q6_plan)):
+        l0 = ST.LAUNCHES
+        out, summary = run_query(plan_fn(), tables)
+        torch.cuda.synchronize()
+        launches[name] = ST.LAUNCHES - l0
+        res = block_result(out)
+        if launches[name] != 1 or summary.device != "cuda:0":
+            raise AssertionError(f"loaded {name}: {launches[name]} stream_tile launches "
+                                 f"on {summary.device}")
+        if res != cpu_res[name] or res[0] != np_res[name]:
+            raise AssertionError(f"loaded {name}: rows differ from the generated catalog's")
+    print(f"q1 and q6 on cuda over the loaded catalog: 1 stream_tile launch each, bit-exact "
+          f"vs the generated catalog's runs and numpy")
+
+    plan_file = d / "q1.json"
+    plan_file.write_text(serde.dumps(q1_plan()))
+    env = dict(os.environ, PYTHONPATH=str(root))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tiflash_tpu_torch.cli", "--tbl-dir", str(d),
+                           "--tables", "lineitem", "query", str(plan_file)],
+                          cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli query failed ({proc.returncode}):\n{proc.stderr}")
+    cols = run_query(q1_plan(), tables)[0].to_pylists()
+    names = list(cols)
+    want = ["\t".join(names)] + ["\t".join(str(cols[c][i]) for c in names)
+                                 for i in range(len(cols[names[0]]))]
+    if proc.stdout.splitlines() != want:
+        raise AssertionError(f"cli query printed\n{proc.stdout}\nexpected\n" + "\n".join(want))
+    print(f"cli: python -m tiflash_tpu_torch.cli --tbl-dir ... --tables lineitem query q1.json "
+          f"printed run_query's {len(want) - 1} rows, {cli_s:.1f} s in its own process "
+          f"(start, cache load, copy to the card, Q1)")
+    for p in (path, cache, plan_file):
+        p.unlink()
+    del tables
+    return {"parse_s": parse_s, "parse_mb_s": size / parse_s / 1e6, "save_s": save_s,
+            "load_s": load_s, "cli_s": cli_s, "launches": launches}
+
+
+def _http(url: str, path: str, obj=None):
+    """(status, decoded JSON) of a GET, or a POST of ``obj``."""
+    import urllib.error
+    import urllib.request
+
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(url + path, data=data,
+                                 headers={"Content-Type": "application/json"},
+                                 method="GET" if obj is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _wait_state(url: str, qid: int, states, timeout: float = 300.0) -> dict:
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        _, res = _http(url, f"/result?id={qid}")
+        if res["state"] in states:
+            return res
+        time.sleep(0.005)
+    raise AssertionError(f"query {qid} never reached {states}: {res}")
+
+
+SERVICE_REPS = 5
+
+
+def service_phase(card: str, cat8) -> dict:
+    """The HTTP query service over the SF1 eight-table catalog on the card:
+    each answer equal to the plan's direct ``run_query`` on the card, with
+    the kernels it launches; concurrency, async, cancel of an out-of-core
+    query, a failpoint, a system table, /status; each request's HTTP wall
+    beside the direct run's median."""
+    import concurrent.futures as cf
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    import torch
+
+    from tiflash_tpu_torch.bench.tpch_queries import (
+        q1_plan, q3_plan, q6_plan, q7_nation_pairs_plan, q10_plan)
+    from tiflash_tpu_torch.mpp.service import QueryService, serve_background
+    from tiflash_tpu_torch.ops.cuda import direct_agg as DA, stream_agg as SA
+    from tiflash_tpu_torch.ops.cuda import stream_tile as ST
+    from tiflash_tpu_torch.plan import serde
+    from tiflash_tpu_torch.runtime.executor import run_query
+
+    plans = {"q1": q1_plan, "q7_pairs": q7_nation_pairs_plan, "q3": q3_plan,
+             "q6": q6_plan, "q10": q10_plan}
+    gpu8 = cat8.blocks("cuda")
+    direct, direct_ms = {}, {}
+    for name, plan_fn in plans.items():
+        out, _ = run_query(plan_fn(), gpu8)
+        # what the service sends: the rows through JSON
+        direct[name] = json.loads(json.dumps(out.to_pylists(), default=str))
+        plan = plan_fn()
+        direct_ms[name] = time_ms(lambda: run_query(plan, gpu8)[0].to_pylists(), WARM_RUNS)
+    svc = QueryService(cat8, device="cuda")
+    httpd, port = serve_background(svc)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        # one request per plan, its launches read just around it
+        want_launches = {"q1": (1, 0), "q7_pairs": (0, 1), "q3": (0, 0)}
+        http_ms, thread_ms, launches = {}, {}, {}
+        for name, (st_want, da_want) in want_launches.items():
+            body = {"plan": serde.plan_to_json(plans[name]())}
+            torch.cuda.synchronize()
+            SA.LAUNCHES = DA.LAUNCHES = ST.LAUNCHES = 0
+            code, resp = _http(url, "/query", body)
+            launches[name] = {"stream_tile": ST.LAUNCHES, "direct_agg": DA.LAUNCHES,
+                              "planes": SA.LAUNCHES}
+            if code != 200 or resp["columns"] != direct[name]:
+                raise AssertionError(f"service {name}: {code}, rows differ from run_query's")
+            if (ST.LAUNCHES, DA.LAUNCHES, SA.LAUNCHES) != (st_want, da_want, 0):
+                raise AssertionError(f"service {name}: launches {launches[name]}")
+            if resp["summary"]["backend"] != "cuda":
+                raise AssertionError(f"service {name}: backend {resp['summary']['backend']}")
+            walls = []
+            for _ in range(SERVICE_REPS):
+                t0 = time.perf_counter()
+                code, again = _http(url, "/query", body)
+                walls.append((time.perf_counter() - t0) * 1e3)
+                if code != 200 or again["columns"] != direct[name]:
+                    raise AssertionError(f"service {name}: a repeat differs")
+            http_ms[name] = statistics.median(walls)
+            # the same direct run in a fresh thread, as each request runs
+            plan, threaded = plans[name](), []
+            for _ in range(SERVICE_REPS):
+                t0 = time.perf_counter()
+                th = threading.Thread(target=lambda: run_query(plan, gpu8)[0].to_pylists())
+                th.start()
+                th.join()
+                threaded.append((time.perf_counter() - t0) * 1e3)
+            thread_ms[name] = statistics.median(threaded)
+            print(f"service {name}: equal to run_query's rows, launches {launches[name]}; "
+                  f"HTTP wall median {http_ms[name]:.3f} ms over {SERVICE_REPS}, direct "
+                  f"run_query + to_pylists median {direct_ms[name]:.3f} ms (in a fresh thread "
+                  f"{thread_ms[name]:.3f}), service overhead "
+                  f"{http_ms[name] - direct_ms[name]:.3f} ms [{card}]")
+
+        # four at once, each equal to its lone result
+        names4 = ("q1", "q6", "q3", "q10")
+
+        def one(name):
+            t0 = time.perf_counter()
+            code, resp = _http(url, "/query", {"plan": serde.plan_to_json(plans[name]())})
+            return name, code, resp, (time.perf_counter() - t0) * 1e3
+
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(4) as ex:
+            together = list(ex.map(one, names4))
+        all_ms = (time.perf_counter() - t0) * 1e3
+        for name, code, resp, _ in together:
+            if code != 200 or resp["columns"] != direct[name]:
+                raise AssertionError(f"service {name} concurrent: {code}, rows differ")
+        print(f"service: {', '.join(names4)} at once, each equal to its lone result; "
+              f"{all_ms:.1f} ms for all four ("
+              + ", ".join(f"{n} {ms:.1f}" for n, _, _, ms in together) + f" ms) [{card}]")
+
+        # async, polled through /result
+        code, sub = _http(url, "/query", {"plan": serde.plan_to_json(q6_plan()), "async": True})
+        res = _wait_state(url, sub["query_id"], ("FINISHED", "FAILED", "CANCELLED"))
+        if code != 200 or res["state"] != "FINISHED" or res["columns"] != direct["q6"]:
+            raise AssertionError(f"service async q6: {res.get('state')}")
+        print("service: async q6 polled through /result, FINISHED, equal to run_query's rows")
+
+        # cancel a running out-of-core request; its slot comes back
+        build_dir = Path(__file__).resolve().parent / "tiflash_tpu_torch" / "build"
+        with tempfile.TemporaryDirectory(dir=build_dir) as spill:
+            code, sub = _http(url, "/query", {
+                "plan": serde.plan_to_json(hc_plan()), "async": True,
+                "settings": {"max_bytes_before_external_group_by": 1, "spill_dir": spill}})
+            qid = sub["query_id"]
+            _wait_state(url, qid, ("RUNNING",))
+            t0 = time.perf_counter()
+            code, res = _http(url, "/cancel", {"query_id": qid})
+            res = _wait_state(url, qid, ("CANCELLED", "FINISHED", "FAILED"))
+            cancel_ms = (time.perf_counter() - t0) * 1e3
+            if code != 200 or res["state"] != "CANCELLED":
+                raise AssertionError(f"service cancel: {code}, {res['state']}")
+        slots = [svc._admission.acquire(blocking=False)
+                 for _ in range(svc.settings.service_max_concurrency)]
+        for got_slot in slots:
+            if got_slot:
+                svc._admission.release()
+        if not all(slots):
+            raise AssertionError("service cancel: an admission slot was not returned")
+        code, resp = _http(url, "/query", {"plan": serde.plan_to_json(q6_plan())})
+        if code != 200 or resp["columns"] != direct["q6"]:
+            raise AssertionError("service: the request after the cancel failed")
+        print(f"service: an out-of-core GROUP BY l_orderkey (external group-by threshold 1 "
+              f"B, spill_dir) cancelled while RUNNING: CANCELLED {cancel_ms:.1f} ms after "
+              f"/cancel; every admission slot free, the next request answered")
+
+        # a failpoint gives 500 kind failpoint, then off
+        fp = "exception_before_fragment_run"
+        _http(url, "/failpoint", {"name": fp, "action": "enable"})
+        try:
+            code, resp = _http(url, "/query", {"plan": serde.plan_to_json(q1_plan())})
+        finally:
+            _http(url, "/failpoint", {"name": fp, "action": "disable"})
+        if code != 500 or resp.get("kind") != "failpoint":
+            raise AssertionError(f"service failpoint: {code} {resp}")
+        code, resp = _http(url, "/query", {"plan": serde.plan_to_json(q1_plan())})
+        if code != 200 or resp["columns"] != direct["q1"]:
+            raise AssertionError("service: q1 after the failpoint")
+
+        # a system table, built on the card
+        code, resp = _http(url, "/query", {"plan": {
+            "exec": "TableScan", "table": "system_tables", "columns": None}})
+        want_tables = {n: t.row_count for n, t in cat8.tables.items()}
+        if code != 200 or dict(zip(resp["columns"]["table"], resp["columns"]["rows"])) \
+                != want_tables or resp["summary"]["backend"] != "cuda":
+            raise AssertionError(f"service system_tables: {code} {resp}")
+        code, st = _http(url, "/status")
+        if code != 200 or st["backend"] != "cuda" or st["devices"] != 1 \
+                or not st["memory"].get("bytes_in_use"):
+            raise AssertionError(f"service status: {st}")
+        print(f"service: failpoint 500 kind failpoint, then off; system_tables on the card "
+              f"lists the {len(want_tables)} tables; /status backend cuda, devices 1, "
+              f"{st['memory']['bytes_in_use']} B in use of {st['memory']['bytes_limit']}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    return {"http_ms": http_ms, "direct_ms": direct_ms, "thread_ms": thread_ms,
+            "launches": launches}
+
+
 def main() -> int:
     """Checks the card, starts the analytic plans' CPU runs in a worker
     process (``analytics_cpu_runs``), runs every phase (``_main``), and
@@ -3043,6 +3547,15 @@ def _main(analytic_cpu) -> int:
     print(f"analytic plans' CPU runs ready ({time.perf_counter() - t0:.1f} s of waiting)")
     analytic_launches = analytics_phase(card, cat, cat8, cpu_runs)
 
+    # ---- 10. the product slice: vector search, the .tbl loader, the service -------
+    t0 = time.perf_counter()
+    vector = vector_phase(card)
+    loader = loader_phase(card, cat, cpu_res, np_res)
+    service = service_phase(card, cat8)
+    print(f"vector, loader and service phases: {time.perf_counter() - t0:.1f} s "
+          f"({vector['ms']['l2']:.4f} ms l2 search, {loader['parse_mb_s']:.1f} MB/s parse, "
+          f"q1 over HTTP {service['http_ms']['q1']:.3f} ms) [{card}]")
+
     q1y = stream_y["q1"]
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "share_of_bound")
 
@@ -3062,6 +3575,8 @@ def _main(analytic_cpu) -> int:
                       main_path_launches, tile_err, tile_y["q1"]),
                 source="tiflash_tpu_torch/csrc/stream_tile.cu.in",
                 tile_function="tiflash_tpu/ops/pallas/stream_agg.py:88",
+                loader_launches=loader["launches"],
+                service_launches={n: v["stream_tile"] for n, v in service["launches"].items()},
                 unfused_ms=tile_y["q1"]["unfused_ms"], build_seconds=generated_build_s,
                 **{k: tile_y["q1"][k] for k in design},
                 q6={k: tile_y["q6"][k] for k in keys + ("unfused_ms",) + design},
@@ -3079,6 +3594,7 @@ def _main(analytic_cpu) -> int:
         dict(entry("direct_agg", "tiflash_tpu/ops/pallas/direct_agg.py:116",
                    q7_launches, direct_err, direct_y),
              analytics_launches=analytic_launches,
+             service_launches={n: v["direct_agg"] for n, v in service["launches"].items()},
              sector_bound_ms=direct_y["sector_bound_ms"],
              # l_shipdate has no static key domain: each chunk's partial
              # takes the sort method, as the CPU dispatch predicts

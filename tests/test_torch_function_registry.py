@@ -1,9 +1,9 @@
-"""The port's scalar-function registry against the JAX package's: equal
-but for exactly the 6 vector names that a later slice of the port brings,
-each of which raises ``NotImplementedError`` naming its slice, whether
-looked up or called in an expression.  The 34 string and TIME names the
-string slice brought, and the 3 grouping functions the analytic slice
-brought with the Expand node, each evaluate equal to the reference."""
+"""The port's scalar-function registry against the JAX package's: the
+port registers every name the reference registers.  The 34 string and
+TIME names the string slice brought, the 3 grouping functions the
+analytic slice brought with the Expand node, and the 6 vector names the
+vector slice brought each evaluate equal to the reference (the vector
+distances within the float32 bound of ``tests/test_torch_vector.py``)."""
 
 import pytest
 import torch
@@ -12,10 +12,10 @@ import tiflash_tpu.expr.compile  # noqa: F401  (the reference's full registry)
 from tiflash_tpu.expr.functions import REGISTRY as J_REGISTRY
 from tiflash_tpu.expr.functions import _ALIASES as J_ALIASES
 
-from tiflash_tpu_torch.core.block import Block, Column
-from tiflash_tpu_torch.core.dtypes import DATE, FLOAT32, INT64, STRING
+from tiflash_tpu_torch.core.block import Column
+from tiflash_tpu_torch.core.dtypes import INT64
 from tiflash_tpu_torch.expr.compile import ExprEvaluator
-from tiflash_tpu_torch.expr.functions import DEFERRED, REGISTRY, _ALIASES, get_function
+from tiflash_tpu_torch.expr.functions import REGISTRY, _ALIASES, get_function
 from tiflash_tpu_torch.expr.nodes import call, col
 
 STRING_NAMES = [
@@ -30,20 +30,24 @@ VECTOR_NAMES = ["vec_l2_distance", "vec_l1_distance",
                 "vec_l2_norm", "vec_dims"]
 GROUPING_NAMES = ["grouping", "grouping_bit_and", "grouping_cmp"]
 STRING_SLICE_NAMES = STRING_NAMES + DURATION_NAMES
-# the names deferred before the analytic slice; the grouping ones are
+# the names deferred before the analytic and the vector slices; all are
 # registered since
 DEFERRED_NAMES = VECTOR_NAMES + GROUPING_NAMES
-SLICE_OF = {n: "ops/vector.py" for n in VECTOR_NAMES}
 
 
 def test_registry_is_the_reference_less_the_deferred_names():
+    """The port registers the reference's names: none is deferred any
+    more."""
     assert len(STRING_SLICE_NAMES) == len(set(STRING_SLICE_NAMES)) == 34
     assert len(VECTOR_NAMES) == len(set(VECTOR_NAMES)) == 6
     assert len(J_REGISTRY) == 181
-    assert set(REGISTRY) == set(J_REGISTRY) - set(VECTOR_NAMES)
-    assert len(REGISTRY) == 175
-    assert set(DEFERRED) == set(VECTOR_NAMES)
+    assert set(REGISTRY) == set(J_REGISTRY)
+    assert len(REGISTRY) == 181
     assert set(GROUPING_NAMES) <= set(REGISTRY)
+    assert set(VECTOR_NAMES) <= set(REGISTRY)
+    import tiflash_tpu_torch.expr.functions as F
+
+    assert not hasattr(F, "DEFERRED")
 
 
 def test_aliases_are_the_reference_aliases():
@@ -56,15 +60,29 @@ def test_aliases_are_the_reference_aliases():
 
 
 @pytest.fixture(scope="module")
-def block():
-    n = 8
-    return Block.from_dict({
-        "i": Column(torch.arange(n, dtype=torch.int64), None, INT64),
-        "d": Column(torch.arange(n, dtype=torch.int32) + 9000, None, DATE),
-        "s": Column(torch.zeros(n, dtype=torch.int32), None, STRING,
-                    dictionary=("x",)),
-        "v": Column(torch.ones(n, 4, dtype=torch.float32), None, FLOAT32),
+def vectors():
+    """Two VECTOR columns (one nullable, with a zero row) in both
+    packages, and their float64 copies."""
+    import numpy as np
+
+    from tiflash_tpu.core import dtypes as JD
+    from tiflash_tpu.core.block import Block as JBlock, column_from_numpy
+    from tiflash_tpu_torch.storage.catalog import blocks_from_numpy
+    from tiflash_tpu_torch.testing.bridge import export_blocks
+
+    rng = np.random.default_rng(31)
+    x = rng.normal(size=(14, 5)).astype(np.float32)
+    y = rng.normal(size=(14, 5)).astype(np.float32)
+    y[4] = 0.0
+    ok = np.arange(14) % 5 != 2
+    jb = JBlock.from_dict({
+        "v": column_from_numpy([tuple(r) for r in x], JD.Vector(5)),
+        "w": column_from_numpy([tuple(r) if k else None for r, k in zip(y, ok)],
+                               JD.Vector(5, nullable=True)),
     })
+    y[~ok] = 0.0
+    return jb, blocks_from_numpy(export_blocks({"t": jb}), "cpu")["t"], \
+        x.astype(np.float64), y.astype(np.float64)
 
 
 @pytest.fixture(scope="module")
@@ -104,9 +122,6 @@ STRING_SLICE_ARGS = {
     "time": ("ts",), "to_seconds": ("d",), "any_value": ("s",),
 }
 
-_ARGS = {"v": VECTOR_NAMES}
-
-
 # grouping-function calls: the gid column, then the marks (literals)
 GROUPING_CALLS = {"grouping": [(1,), (2, 3), (4,)],
                   "grouping_bit_and": [(1,), (1, 2), (3, 4, 8)],
@@ -114,15 +129,17 @@ GROUPING_CALLS = {"grouping": [(1,), (2, 3), (4,)],
 
 
 @pytest.mark.parametrize("name", DEFERRED_NAMES)
-def test_deferred_name_raises_naming_its_slice(block, blocks, name):
-    """A vector name raises naming its slice; a grouping name (deferred
-    until the Expand node came) evaluates equal to the reference over gid
-    values 1..14, for one, two and three marks."""
+def test_deferred_name_raises_naming_its_slice(vectors, blocks, name):
+    """Each name once deferred evaluates equal to the reference: a
+    grouping name over gid values 1..14, for one, two and three marks; a
+    vector name over two VECTOR columns, its type and NULLs exactly, its
+    values within the float32 bound of ``tests/torch_vector_bounds.py``."""
+    from tiflash_tpu.expr import compile as JC
+    from tiflash_tpu.expr import nodes as JE
+
     if name in GROUPING_NAMES:
         from tiflash_tpu.core import dtypes as JD
         from tiflash_tpu.core.block import column_from_numpy
-        from tiflash_tpu.expr import compile as JC
-        from tiflash_tpu.expr import nodes as JE
         from tiflash_tpu_torch.expr.nodes import lit
 
         jb, tb = blocks
@@ -136,13 +153,21 @@ def test_deferred_name_raises_naming_its_slice(block, blocks, name):
             assert repr(t.dtype) == repr(j.dtype)
             assert t.to_pylist() == j.to_pylist(), (name, marks)
         return
-    with pytest.raises(NotImplementedError, match=SLICE_OF[name]):
-        get_function(name)
-    arg = next((c for c, names in _ARGS.items() if name in names), "i")
-    args = [col(arg)] * (2 if name.startswith("vec_") and name != "vec_l2_norm"
-                         and name != "vec_dims" else 1)
-    with pytest.raises(NotImplementedError, match=SLICE_OF[name]):
-        ExprEvaluator(block).evaluate(call(name, *args))
+    from torch_vector_bounds import function_bound
+
+    assert get_function(name).name == name
+    jb, tb, x, y = vectors
+    args = ("v",) if name in ("vec_l2_norm", "vec_dims") else ("v", "w")
+    j = JC.ExprEvaluator(jb).evaluate(JE.call(name, *[JE.col(a) for a in args]))
+    t = ExprEvaluator(tb).evaluate(call(name, *[col(a) for a in args]))
+    assert repr(t.dtype) == repr(j.dtype)
+    tv, jv = t.to_pylist(), j.to_pylist()
+    assert [v is None for v in tv] == [v is None for v in jv]
+    assert any(v is None for v in tv) == (len(args) == 2)
+    bound = function_bound(name, x, y)
+    for i, (g, w) in enumerate(zip(tv, jv)):
+        if g is not None:
+            assert abs(g - w) <= bound[i], (name, i, g, w)
 
 
 @pytest.mark.parametrize("name", STRING_SLICE_NAMES)

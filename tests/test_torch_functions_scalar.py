@@ -391,14 +391,15 @@ def test_every_new_function_has_a_case():
     """Each name of the functions slice has a case here; the string
     slice's names have theirs in ``test_torch_strings.py`` and
     ``test_torch_duration.py``, the analytic slice's grouping functions
-    in ``test_torch_function_registry.py``."""
-    from test_torch_function_registry import GROUPING_NAMES
+    in ``test_torch_function_registry.py``, the vector slice's in
+    ``test_torch_vector.py``."""
+    from test_torch_function_registry import GROUPING_NAMES, VECTOR_NAMES
     from test_torch_strings import REGISTRY_NAMES
     from test_torch_duration import DURATION_NAMES
 
     named = {c.split()[0] for c in CASES}
     new = (set(T_REGISTRY) - OLD_NAMES - set(REGISTRY_NAMES) - set(DURATION_NAMES)
-           - set(GROUPING_NAMES))
+           - set(GROUPING_NAMES) - set(VECTOR_NAMES))
     assert len(new) == 123
     assert sorted(new - named) == []
     assert named - {"extract", "date_add", "date_sub", "now", "curdate", "pi"} \

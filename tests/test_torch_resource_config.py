@@ -1,12 +1,12 @@
 """Settings, TOML and environment layering, resource groups and the
 memory quota of the PyTorch port, against the JAX package.
 
-Mirrors ``tests/test_resource_config.py`` without its service case (the
-port's service comes with a later slice): the token bucket, resource
+Mirrors ``tests/test_resource_config.py``: the token bucket, resource
 group admission, ``to_ru``, ``from_toml``/``from_env``/
 ``with_overrides``, the memory limit and its chunked fallback,
 per-aggregate defaults, ``max_execution_time_ms``,
-``query_timestamp_us``, ``enable_spill`` and the config template.  The
+``query_timestamp_us``, ``enable_spill``, the service's
+``service_queue_timeout_s`` and the config template.  The
 port's ``Settings`` has every field of the reference's, with its
 defaults, so one deployment's settings steer both alike.
 """
@@ -214,6 +214,55 @@ def test_enable_spill_off_raises():
                                                   enable_spill=False))
     out, _ = run_query(plan, tables, settings=Settings(max_bytes_per_device=small))
     assert sorted(out.to_pylists()["g"]) == list(range(8))
+
+
+def test_service_queue_timeout():
+    """service_queue_timeout_s: a QUEUED query gives up its wait and
+    answers 499 with a CANCELLED code, as the reference's does."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    from tiflash_tpu_torch.bench.tpch_queries import q6_plan
+    from tiflash_tpu_torch.mpp.service import QueryService, serve_background
+    from tiflash_tpu_torch.plan import serde
+    from tiflash_tpu_torch.storage.tpch import generate_tpch
+
+    svc = QueryService(generate_tpch(sf=0.001, seed=5), mesh=None, max_concurrency=1,
+                       settings=Settings(service_queue_timeout_s=0.4), device="cpu")
+    httpd, port = serve_background(svc)
+    url = f"http://127.0.0.1:{port}"
+
+    def post(path, obj):
+        req = urllib.request.Request(
+            url + path, data=json.dumps(obj).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        try:
+            with urllib.request.urlopen(req) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    plan_json = serde.plan_to_json(q6_plan())
+    try:
+        post("/failpoint", {"name": "exception_before_fragment_run", "action": "pause"})
+        _, sub1 = post("/query", {"plan": plan_json, "async": True})
+        t0 = time.time()
+        while time.time() - t0 < 20:
+            with urllib.request.urlopen(url + f"/result?id={sub1['query_id']}") as r:
+                if json.loads(r.read())["state"] == "RUNNING":
+                    break
+            time.sleep(0.05)
+        # the second query queues behind the paused one and times out
+        t0 = time.time()
+        code, res = post("/query", {"plan": plan_json})
+        assert time.time() - t0 < 10
+        assert code == 499 and res["kind"] == "cancelled", (code, res)
+        assert "service_queue_timeout_s" in res["error"] and res["code_name"] == "CANCELLED"
+        post("/cancel", {"query_id": sub1["query_id"]})
+    finally:
+        FailPoint.disable_all()
+        httpd.shutdown()
 
 
 def test_config_template_loads_and_covers_every_setting():

@@ -29,8 +29,8 @@ from .dtypes import DataType
 class Column:
     """One column: fixed-width values + optional validity mask.
 
-    ``data``       tensor (n,) of the physical dtype, or (n, L) int64
-                   limbs for a wide decimal.
+    ``data``       tensor (n,) of the physical dtype, (n, L) int64 limbs
+                   for a wide decimal, or (n, dims) float32 for a VECTOR.
     ``validity``   optional bool tensor (n,); None means all valid.
     ``dictionary`` for STRING columns, the sorted tuple of strings the
                    int32 codes index.
@@ -114,15 +114,14 @@ class Column:
                 items = [self.dictionary[c] for c, ok in zip(row, ok_row) if ok]
                 out.append(self.concat_sep.join(items) if items else None)
             return out
-        if data.ndim == 2:
-            raise NotImplementedError(
-                "2-D columns other than wide decimals and group_concat "
-                "results come with the vector slice of the port")
         valid = (np.ones(len(data), dtype=bool) if self.validity is None
                  else self.validity.cpu().numpy())
         if sel is not None:
             data = data[sel]
             valid = valid[sel]
+        if self.dtype.is_vector:
+            return [tuple(row) if ok else None
+                    for row, ok in zip(data.tolist(), valid.tolist())]
         out = []
         for v, ok in zip(data.tolist(), valid.tolist()):
             if not ok:

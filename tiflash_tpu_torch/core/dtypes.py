@@ -167,6 +167,12 @@ class DataType:
     def is_temporal(self) -> bool:
         return self.kind in (TypeKind.DATE, TypeKind.DATETIME)
 
+    @property
+    def is_vector(self) -> bool:
+        """VECTOR Float32: column data is (n, dims) float32, ``precision``
+        holds ``dims``."""
+        return self.kind is TypeKind.VECTOR
+
     def with_nullable(self, nullable: bool = True) -> "DataType":
         return dataclasses.replace(self, nullable=nullable)
 
@@ -355,6 +361,13 @@ def Decimal(precision: int, scale: int, nullable: bool = False) -> DataType:
     return DataType(TypeKind.DECIMAL, nullable=nullable, precision=precision, scale=scale)
 
 
+def Vector(dims: int, nullable: bool = False) -> DataType:
+    """VECTOR Float32 with a fixed dimension count."""
+    if dims <= 0:
+        raise ValueError("vector dims must be positive")
+    return DataType(TypeKind.VECTOR, nullable=nullable, precision=dims)
+
+
 def common_numeric_type(a: DataType, b: DataType) -> DataType:
     """Result type of arithmetic between two numeric types (TiDB subset)."""
     nullable = a.nullable or b.nullable
@@ -379,7 +392,7 @@ def comparison_result_type(a: DataType, b: DataType) -> DataType:
 
 
 __all__ = [
-    "TypeKind", "DataType", "Decimal",
+    "TypeKind", "DataType", "Decimal", "Vector",
     "INT8", "INT16", "INT32", "INT64", "UINT8", "UINT32", "UINT64",
     "FLOAT32", "FLOAT64", "BOOL", "DATE", "DATETIME", "DURATION", "STRING",
     "common_numeric_type", "comparison_result_type", "DURATION_MAX_US",

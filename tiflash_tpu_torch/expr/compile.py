@@ -56,6 +56,7 @@ from ..core.dtypes import (
     INT64,
     STRING,
     TypeKind,
+    Vector,
     ZeroDateTime,
 )
 from ..runtime.errors import EngineError, EvalError
@@ -250,6 +251,8 @@ def infer_literal_dtype(value) -> DataType:
 
     if isinstance(value, _D):
         return Decimal(18, max(0, -value.as_tuple().exponent))
+    if isinstance(value, (list, tuple)):
+        return Vector(len(value))
     raise TypeError(f"cannot infer literal type for {value!r}")
 
 
@@ -369,6 +372,10 @@ class ExprEvaluator:
             dt = ref.with_nullable(True)
             return Column(self._full(0, dt.torch_dtype),
                           self._full(False, torch.bool), dt)
+        if isinstance(value, (list, tuple)):
+            # a query vector: one constant row, broadcast to every row
+            vec = torch.tensor(value, dtype=torch.float32, device=self.device)
+            return Column(vec.expand(self.n, len(value)), None, Vector(len(value)))
         dt = lit.dtype or infer_literal_dtype(value)
         # contextual re-typing against the other operand
         if context is not None:

@@ -45,7 +45,10 @@ What is not a port of the reference's code but of its semantics:
   float remainder is inexact; ``torch.fmod`` is exact C fmod.  Denormal
   results differ: the reference flushes them to zero.
 
-The ``vec_*`` functions come with ``ops/vector.py`` (``DEFERRED``).  The
+The ``vec_*`` functions reduce each (n, dims) float32 row in float32,
+as the reference's do, and give float64; their sums add in another order
+than XLA's, so they agree within a float32 ulp bound scaled by dims, not
+bit for bit.  The batched form is ``ops/vector.py``.  The
 grouping functions read the Expand node's ``groupingID`` column
 (``ops/expand.py``).
 """
@@ -84,15 +87,6 @@ from ..core.dtypes import (
 )
 
 DIV_PRECISION_INCREMENT = 4  # TiDB div_precision_increment default
-
-_VECTOR_NAMES = ("vec_l2_distance", "vec_l1_distance",
-                 "vec_negative_inner_product", "vec_cosine_distance",
-                 "vec_l2_norm", "vec_dims")
-# registered by the reference, not yet by the port: name -> where it comes
-DEFERRED: Dict[str, str] = {
-    **{n: "comes with ops/vector.py and the Vector type" for n in _VECTOR_NAMES},
-}
-
 
 def _pow10(k: int) -> int:
     return 10 ** k
@@ -1077,9 +1071,6 @@ def get_function(name: str) -> Function:
     try:
         return REGISTRY[name]
     except KeyError:
-        if name in DEFERRED:
-            raise NotImplementedError(
-                f"scalar function {name!r} {DEFERRED[name]}") from None
         raise KeyError(f"scalar function {name!r} not registered "
                        f"(have: {sorted(REGISTRY)})") from None
 
@@ -2239,6 +2230,88 @@ def _nullif():
     return infer, evaluate
 
 
+# ---------------------------------------------------------------------------
+# vector distances (the reference's vec_* family): per-row float32
+# reductions over (n, dims) rows, cast to float64 at the end
+# ---------------------------------------------------------------------------
+
+def _sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root: the float64 root (``_sqrt``)
+    rounded once more to float32 is exact for float32 inputs."""
+    return _sqrt(x.double()).float()
+
+
+def _cosine32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    norms = _sqrt32((x * x).sum(1)) * _sqrt32((y * y).sum(1))
+    return 1.0 - (x * y).sum(1) / torch.clamp_min(norms, 1e-30)
+
+
+def _register_vec_distance(name: str, fn, guard=None):
+    def factory():
+        def infer(ts):
+            if not (ts[0].is_vector and ts[1].is_vector):
+                raise TypeError(f"{name} needs two vector arguments")
+            if ts[0].precision != ts[1].precision:
+                raise ValueError(f"{name}: dimension mismatch "
+                                 f"{ts[0].precision} vs {ts[1].precision}")
+            nullable = ts[0].nullable or ts[1].nullable or guard is not None
+            return DataType(TypeKind.FLOAT64, nullable)
+
+        def evaluate(cols, out):
+            x, y = (c.data.float() for c in cols)
+            validity = _and_validity(cols)
+            if guard is not None:
+                ok = guard(x, y)
+                validity = ok if validity is None else (validity & ok)
+            return Column(fn(x, y).double(), validity, out)
+
+        return infer, evaluate
+
+    register(name)(factory)
+
+
+_register_vec_distance("vec_l2_distance",
+                       lambda x, y: _sqrt32(((x - y) ** 2).sum(1)))
+_register_vec_distance("vec_l1_distance",
+                       lambda x, y: torch.abs(x - y).sum(1))
+_register_vec_distance("vec_negative_inner_product",
+                       lambda x, y: -(x * y).sum(1))
+# a zero-norm operand gives NULL (cosine distance is undefined there)
+_register_vec_distance("vec_cosine_distance", _cosine32,
+                       guard=lambda x, y: ((x * x).sum(1) > 0) & ((y * y).sum(1) > 0))
+
+
+@register("vec_l2_norm")
+def _vec_l2_norm():
+    def infer(ts):
+        if not ts[0].is_vector:
+            raise TypeError("vec_l2_norm needs a vector argument")
+        return DataType(TypeKind.FLOAT64, ts[0].nullable)
+
+    def evaluate(cols, out):
+        (a,) = cols
+        x = a.data.float()
+        return Column(_sqrt32((x * x).sum(1)).double(), a.validity, out)
+
+    return infer, evaluate
+
+
+@register("vec_dims")
+def _vec_dims():
+    def infer(ts):
+        if not ts[0].is_vector:
+            raise TypeError("vec_dims needs a vector argument")
+        return DataType(TypeKind.INT64, ts[0].nullable)
+
+    def evaluate(cols, out):
+        (a,) = cols
+        dims = torch.full((a.data.shape[0],), a.data.shape[1], dtype=torch.int64,
+                          device=a.data.device)
+        return Column(dims, a.validity, out)
+
+    return infer, evaluate
+
+
 def _register_grouping(name: str, per_mark):
     """GROUPING() over the Expand node's gid column (the reference's
     ``FunctionsGrouping.h`` ModeBitAnd / ModeNumericCmp).  The arguments
@@ -3145,6 +3218,6 @@ for _alias, _target in _ALIASES.items():
 
 from . import duration as _duration  # noqa: E402,F401  (registers TIME fns)
 
-__all__ = ["REGISTRY", "DEFERRED", "get_function", "cast_column", "Function",
+__all__ = ["REGISTRY", "get_function", "cast_column", "Function",
            "DIV_PRECISION_INCREMENT", "propagate_stats", "round_decimal_frac",
            "round_decimal_frac_dynamic", "parse_mysql_time"]

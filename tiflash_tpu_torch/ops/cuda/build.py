@@ -8,8 +8,9 @@ scan's kernel of one plan, ``ops/cuda/stream_tile.py``), written to
 headers) into a shared library under ``tiflash_tpu_torch/build/`` named by
 the hash of source text, the ``csrc`` headers and flags, so an edit
 rebuilds, and loaded with ``ctypes``.  ``build_libraries`` builds several
-sources at once, one ``nvcc`` process each.  Nothing here runs at import
-time.
+sources at once, one ``nvcc`` process each, under a module lock: service
+threads that meet the same new plan shape at once build it once.  Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
@@ -32,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC))
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_BUILD_LOCK = threading.Lock()
 # seconds each library took to build in this process (0.0 when it was
 # already on disk), by name (``stream_agg``) or, for a generated source,
 # ``<prefix>-<tag>``; read by chip_smoke.py
@@ -124,6 +127,11 @@ def build_libraries(names: Sequence[str] = (),
     ``(prefix, text)`` that is not on disk yet, one ``nvcc`` per source,
     all started together, then load them all.  Returns the libraries by
     name and by generated key (``<prefix>-<tag>``)."""
+    with _BUILD_LOCK:
+        return _build_libraries(names, generated)
+
+
+def _build_libraries(names, generated) -> Dict[str, ctypes.CDLL]:
     jobs = []
     for name in dict.fromkeys(names):
         if name not in _LOADED:

@@ -196,7 +196,9 @@ def device_memory_stats(device=None) -> Dict[str, int]:
 class QueryMemoryScope:
     """Per-query runtime accounting on ``device``: resets the allocator's
     peak at entry, so ``peak_bytes`` is this query's peak, and reports
-    the live-byte delta across the scope.  Zeros on the CPU."""
+    the live-byte delta across the scope.  Zeros on the CPU.  The peak and
+    the live bytes are the process's: with queries running at once in
+    other threads, both include their allocations."""
 
     def __init__(self, device=None):
         self.device = device

@@ -17,20 +17,17 @@ there is no other spill implementation.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import tempfile
 import threading
-import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-_SRC = Path(__file__).resolve().parents[1] / "native" / "spiller.cpp"
-_BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
-_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+from . import native
+
+_SRC = native.NATIVE_DIR / "spiller.cpp"
+_LINK = ("-lz",)
 
 _lock = threading.Lock()
 _lib = None
@@ -40,24 +37,7 @@ BUILD_SECONDS: Optional[float] = None
 
 
 def library_path() -> Path:
-    text = _SRC.read_bytes() + " ".join(_FLAGS).encode()
-    return _BUILD_DIR / f"libtflspill-{hashlib.sha256(text).hexdigest()[:16]}.so"
-
-
-def _build(path: Path) -> None:
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=_BUILD_DIR, suffix=".so")
-    os.close(fd)
-    try:
-        proc = subprocess.run(["g++", *_FLAGS, str(_SRC), "-o", tmp, "-lz"],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed on {_SRC} ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)  # atomic: no half-written library
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    return native.library_path(_SRC, "tflspill", _LINK)
 
 
 def get_lib() -> ctypes.CDLL:
@@ -65,12 +45,7 @@ def get_lib() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        path = library_path()
-        t0 = time.perf_counter()
-        if not path.exists():
-            _build(path)
-        BUILD_SECONDS = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(path))
+        lib, BUILD_SECONDS = native.load(_SRC, "tflspill", _LINK)
         lib.spl_open.restype = ctypes.c_void_p
         lib.spl_open.argtypes = [ctypes.c_char_p, ctypes.c_int]
         lib.spl_write.restype = ctypes.c_int

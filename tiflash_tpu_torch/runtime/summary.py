@@ -5,6 +5,9 @@ the port's ``device`` (the result's torch device).  ``backend`` is
 ``"cuda"`` or ``"cpu"``; ``compile_seconds`` is the time this run spent
 building kernels (``ops/cuda/build.BUILD_SECONDS``); the two byte fields
 are the CUDA caching allocator's (``runtime/memory.py``), 0 on the CPU.
+The allocator's counters are process-wide, as the reference's are: while
+several queries run at once (the service's threads), a query's
+``peak_device_bytes`` includes what the others held.
 
 Role analog: ``Flash/Statistics/ExecutorStatisticsCollector.h:38`` /
 ``ExecutionSummary.cpp`` — per-executor rows + timing returned to TiDB.
