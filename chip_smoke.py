@@ -91,7 +91,21 @@ random data from seed 0:
   l_orderkey) through ``SkewShuffleJoin`` and the plain shuffle, per-shard
   rows and max share, against the single-device join; and Q3 through
   ``mpp/multihost.py`` over NCCL at world size 1.  Every shard tensor is
-  held on the card.
+  held on the card;
+- the SQL front end (``sql_phase``, last): the ``tests/sql_cases/*.test``
+  scripts through ``testing/reftest.py``'s ``RefTestSession("cuda")`` and
+  ``RefTestSession("cpu")`` in this process, every statement the same
+  (exception, checked, unsupported, every SELECT's rows) and every
+  recorded table passing on the card, then again with
+  ``TIFLASH_REFTEST_DISTRIBUTED=1`` over ``Mesh([cuda:0] * 8)`` (the same
+  rows in any order, as many distributed runs as over ``cpu_mesh(8)``);
+  then TPC-H Q1 and Q6 as SQL text over SF 0.1 lineitem (the front end
+  turns a table's Python rows into a block at every query, which is what
+  cuts the scale) through one card session, bit-exact against
+  ``run_query`` of ``q1_plan()`` / ``q6_plan()`` on the same catalog on
+  the card and against numpy, each kernel's launches printed and held
+  kernel == plain at every captured call, the wall split into host
+  conversion, plan build, the engine run and the result's decode.
 
 Each kernel is held against its plain version (``torch.equal``) on edge
 cases, and timed at the query's own arguments beside one ``index_add_``
@@ -2207,28 +2221,78 @@ def runtime_controls_phase(card: str, cpu_tables, gpu_tables) -> None:
 
 def explain_phase(card: str, gpu7) -> dict:
     """EXPLAIN ANALYZE of Q7-pairs on the card: per-node subtree and self
-    times (CUDA events after a synchronize; 2 warm and 10 timed rounds);
+    times (CUDA events after a synchronize; 2 warm and 20 timed rounds);
     the self times must sum to within 10% of one timed run of the same
-    tree (the median of 10 after the report)."""
+    tree, the median of 20 runs, one at the end of each timed round.
+    Measured in the report's rounds, a slow or fast stretch of the host
+    touches both sides alike; measured after the report instead, the two
+    medians read 86.0-118.2% of each other over 20 back-to-back repeats
+    on an idle host.  Prints both sides' spread over
+    their 20 samples: the self-time sum of each round, and each run of
+    the tree."""
+    import statistics
+
+    import tiflash_tpu_torch.runtime.analyze as A
     from tiflash_tpu_torch.bench.tpch_queries import q7_nation_pairs_plan
-    from tiflash_tpu_torch.runtime.analyze import explain_analyze, format_analyze, time_subtree
     from tiflash_tpu_torch.runtime.executor import QueryRunner
 
     runner = QueryRunner(q7_nation_pairs_plan())
     runner.run(gpu7)  # the rewritten, auto-sized tree
-    report = explain_analyze(runner.plan, gpu7, k1=2, k2=10)
-    whole = time_subtree(runner.plan, gpu7, k1=1, k2=10)
+    entries = list(A.walk_subtrees(runner.plan))
+    samples, whole_runs, real_once = {}, [], A._run_once
+
+    def once(node, tables, device):
+        t = real_once(node, tables, device)
+        samples.setdefault(id(node), []).append(t)
+        if sum(map(len, samples.values())) % len(entries) == 0:  # a round's end
+            whole_runs.append(real_once(runner.plan, tables, device))
+        return t
+
+    A._run_once = once
+    try:
+        report = A.explain_analyze(runner.plan, gpu7, k1=2, k2=20)
+    finally:
+        A._run_once = real_once
+    whole_runs = whole_runs[2:]
+    whole = statistics.median(whole_runs) if len(whole_runs) == 20 else None
     selfs = [r["self_s"] for r in report]
-    if any(v is None for v in selfs):
+    if any(v is None for v in selfs) or whole is None:
         raise AssertionError(f"q7_pairs: a subtree did not run alone: {report}")
     total = sum(selfs)
     print(f"explain analyze q7_pairs sf{SF} [{card}]:")
-    print(format_analyze(report))
+    print(A.format_analyze(report))
     print(f"  self times sum {total * 1e3:.3f} ms; one timed run of the tree "
           f"{whole * 1e3:.3f} ms ({total / whole:.1%})")
+    # each round's self-time sum, from that round's subtree times
+    rounds = None
+    if all(len(samples.get(id(n), ())) == 22 for _, n in entries):
+        t = {path: samples[id(n)][2:] for path, n in entries}
+        kids = {path: [c for c, _ in entries if c.startswith(path + ".")
+                       and c.count(".") == path.count(".") + 1] for path, _ in entries}
+        rounds = [sum(max(t[p][r] - sum(t[c][r] for c in kids[p]), 0.0) for p in t)
+                  for r in range(20)]
+
+    def spread(xs):
+        if xs is None:
+            return None
+        q = statistics.quantiles(xs, n=4)
+        return {"min_ms": min(xs) * 1e3, "q1_ms": q[0] * 1e3,
+                "median_ms": statistics.median(xs) * 1e3, "q3_ms": q[2] * 1e3,
+                "max_ms": max(xs) * 1e3}
+
+    out = {"self_sum_ms": total * 1e3, "run_ms": whole * 1e3,
+           "self_sum_rounds": spread(rounds), "run_samples": spread(whole_runs)}
+    for k, label in (("self_sum_rounds", "self-time sum per round"),
+                     ("run_samples", "one run of the tree")):
+        v = out[k]
+        print(f"  {label} over 20: " + ("not measured (a node repeats in the tree)"
+                                         if v is None else
+                                         f"min {v['min_ms']:.3f}, quartiles {v['q1_ms']:.3f} / "
+                                         f"{v['median_ms']:.3f} / {v['q3_ms']:.3f}, max "
+                                         f"{v['max_ms']:.3f} ms"))
     if abs(total - whole) > 0.1 * whole:
         raise AssertionError(f"q7_pairs: self times sum {total} s, one run {whole} s")
-    return {"self_sum_ms": total * 1e3, "run_ms": whole * 1e3}
+    return out
 
 
 # ---- the analytic slice: numpy versions and the card phase -------------------
@@ -3768,6 +3832,369 @@ def mesh_sf10_phase(card: str, cat10) -> dict:
     return res
 
 
+# ---- the SQL front end: the parity scripts, then Q1 and Q6 as SQL text -----------
+
+SQL_CASES = ("types", "dml", "select", "joins", "subquery", "analytic", "errors")
+SQL_SF = 0.1           # the front end turns a table's Python rows into a block per query
+SQL_REPEATS = 3        # warm statements per SQL query whose split is the median
+LINEITEM_DDL = (
+    "create table lineitem (l_orderkey bigint not null, l_partkey bigint not null, "
+    "l_suppkey bigint not null, l_linenumber bigint not null, "
+    "l_quantity decimal(15,2) not null, l_extendedprice decimal(15,2) not null, "
+    "l_discount decimal(15,2) not null, l_tax decimal(15,2) not null, "
+    "l_returnflag char(1) not null, l_linestatus char(1) not null, "
+    "l_shipdate date not null, l_commitdate date not null, l_receiptdate date not null, "
+    "l_shipmode char(10) not null)")
+# TPC-H's Q1 and Q6 text, with the validation run's substitutions as literals
+# (Q1: DELTA 90, so the cutoff date is 1998-09-02; Q6: 1994, 0.06, 24)
+SQL_Q1 = (
+    "select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty, "
+    "sum(l_extendedprice) as sum_base_price, "
+    "sum(l_extendedprice * (1 - l_discount)) as sum_disc_price, "
+    "sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge, "
+    "avg(l_quantity) as avg_qty, avg(l_extendedprice) as avg_price, "
+    "avg(l_discount) as avg_disc, count(*) as count_order "
+    "from lineitem where l_shipdate <= date '1998-09-02' "
+    "group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus")
+SQL_Q6 = (
+    "select sum(l_extendedprice * l_discount) as revenue from lineitem "
+    "where l_shipdate >= date '1994-01-01' and l_shipdate < date '1995-01-01' "
+    "and l_discount between 0.05 and 0.07 and l_quantity < 24")
+
+
+def planes_equal_plain(SA, call) -> int:
+    """The planes kernel == its plain version (``torch.equal``) on a
+    captured ``group_sums`` call's own card inputs, each into zeros;
+    returns the largest absolute difference (0), raises on any."""
+    import torch
+
+    slots, planes, fields, n_slots, out, *rest = call
+    got = SA.group_sums(slots, planes, fields, n_slots, torch.zeros_like(out), *rest)
+    want = SA.group_sums_plain(slots, planes, fields, n_slots, torch.zeros_like(out), *rest)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max()) if got.numel() else 0
+    if not torch.equal(got, want):
+        raise AssertionError(f"stream_agg kernel != plain at a captured call "
+                             f"({slots.shape[0]} rows, S={n_slots}, max abs err {err})")
+    return err
+
+
+def _on_card(x) -> bool:
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.device.type == "cuda"
+    if isinstance(x, dict):
+        return any(_on_card(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return any(_on_card(v) for v in x)
+    return x is not None and torch.device(x).type == "cuda"
+
+
+def held_kernel_run(what: str, SA, DA, ST, run) -> tuple:
+    """``run()`` with every kernel's count set to 0 just before it and
+    every wrapper call captured: each kernel's launches must be exactly
+    what its captured card calls make (direct_agg: ``launch_plan``'s
+    column groups per call with rows; stream_tile and the planes kernel:
+    one per call with rows), and each card call is held kernel == plain
+    on its own inputs.  Returns (launches, max abs error), each keyed by
+    kernel."""
+    import torch
+
+    calls = {}
+
+    def with_sa():
+        calls["stream_agg"] = capture_calls(SA, "group_sums", run)
+
+    def with_st():
+        calls["stream_tile"] = capture_calls(ST, "fused_group_sums", with_sa)
+
+    torch.cuda.synchronize()
+    SA.LAUNCHES = DA.LAUNCHES = ST.LAUNCHES = 0
+    calls["direct_agg"] = capture_calls(DA, "group_sums", with_st)
+    torch.cuda.synchronize()
+    launches = {"stream_tile": ST.LAUNCHES, "direct_agg": DA.LAUNCHES,
+                "stream_agg": SA.LAUNCHES}
+    card = {"direct_agg": [c for c in calls["direct_agg"] if _on_card(c[0])],
+            "stream_agg": [c for c in calls["stream_agg"] if _on_card(c[0])],
+            # (inputs, program, S, n_limbs, n_rows, plane_fields, headroom, device)
+            "stream_tile": [c for c in calls["stream_tile"]
+                            if _on_card(c[7] if len(c) > 7 and c[7] is not None else c[0])]}
+    predicted = {
+        "direct_agg": sum(len(DA.launch_plan(c[2], len(DA._value_list(c[1])) + 1))
+                          for c in card["direct_agg"] if c[0].shape[0]),
+        "stream_agg": sum(1 for c in card["stream_agg"] if c[0].shape[0]),
+        "stream_tile": sum(1 for c in card["stream_tile"] if c[4] > 0)}
+    if launches != predicted:
+        raise AssertionError(f"{what}: launches {launches}, the captured calls make "
+                             f"{predicted}")
+    errs = {"stream_tile": max([fused_equals_plain(ST, c) for c in card["stream_tile"]],
+                               default=0),
+            "direct_agg": mesh_direct_agg_check(DA, card["direct_agg"]),
+            "stream_agg": max([planes_equal_plain(SA, c) for c in card["stream_agg"]],
+                              default=0)}
+    return launches, errs
+
+
+def sql_script_runs(device: str, distributed: bool) -> dict:
+    """Each script of ``tests/sql_cases`` through one
+    ``RefTestSession(device)``, with ``TIFLASH_REFTEST_DISTRIBUTED`` set
+    or not: per statement (exception, checked, unsupported, the rows of
+    its SELECTs), and the session's totals."""
+    import os
+    import pathlib
+
+    from tiflash_tpu_torch.runtime.failpoint import FailPoint
+    from tiflash_tpu_torch.testing.reftest import RefTestSession, parse_test_file
+
+    cases = pathlib.Path(__file__).resolve().parent / "tests" / "sql_cases"
+    before = os.environ.pop("TIFLASH_REFTEST_DISTRIBUTED", None)
+    if distributed:
+        os.environ["TIFLASH_REFTEST_DISTRIBUTED"] = "1"
+    out = {}
+    try:
+        for name in SQL_CASES:
+            t0 = time.perf_counter()
+            sess = RefTestSession(device)
+            records = []
+            for stmt, expected in parse_test_file(str(cases / f"{name}.test")):
+                n, c, u = len(sess.results), sess.checked, len(sess.unsupported)
+                err = None
+                try:
+                    sess.run_statement(stmt, expected)
+                except Exception as e:
+                    err = (type(e).__name__, str(e))
+                records.append((err, sess.checked - c, sess.unsupported[u:],
+                                sess.results[n:]))
+            FailPoint.disable_all()
+            out[name] = {"records": records, "checked": sess.checked,
+                         "unsupported": len(sess.unsupported),
+                         "distributed_runs": sess.distributed_runs,
+                         "s": time.perf_counter() - t0}
+    finally:
+        FailPoint.disable_all()
+        os.environ.pop("TIFLASH_REFTEST_DISTRIBUTED", None)
+        if before is not None:
+            os.environ["TIFLASH_REFTEST_DISTRIBUTED"] = before
+    return out
+
+
+def _unordered(results) -> list:
+    return [sorted(repr(r) for r in rows) for rows in results]
+
+
+def sql_scripts_check(card: str, SA, DA, ST) -> dict:
+    """The parity scripts on the card against the same scripts on the CPU,
+    in one process: every statement the same (exception, checked,
+    unsupported, every SELECT's rows), no recorded table failing on the
+    card; then with the distributed switch over ``Mesh([cuda:0] * 8)``,
+    the same rows (in any order) and as many distributed runs as over
+    ``cpu_mesh(8)``.  Each card run is a ``held_kernel_run``: its
+    launches are exactly its captured calls' and each call is held
+    kernel == plain."""
+    runs, held = {}, {}
+    for dev, dist in (("cpu", False), ("cuda", False), ("cuda", True), ("cpu", True)):
+        if dev == "cpu":
+            runs[(dev, dist)] = sql_script_runs(dev, dist)
+            continue
+        got = []
+        key = "scripts_mesh" if dist else "scripts"
+        held[key] = held_kernel_run(f"sql {key}", SA, DA, ST,
+                                    lambda: got.append(sql_script_runs(dev, dist)))
+        runs[(dev, dist)] = got[0]
+    cpu, gpu = runs[("cpu", False)], runs[("cuda", False)]
+    gpu_d, cpu_d = runs[("cuda", True)], runs[("cpu", True)]
+    totals = {"statements": 0, "checked": 0, "unsupported": 0, "distributed_runs": 0}
+    for name in SQL_CASES:
+        a, b = cpu[name], gpu[name]
+        for i, (ra, rb) in enumerate(zip(a["records"], b["records"])):
+            if ra != rb:
+                raise AssertionError(f"sql {name} statement {i}: card {rb} != cpu {ra}")
+            if rb[0] is not None and rb[0][0] == "AssertionError":
+                raise AssertionError(f"sql {name} statement {i}: a recorded table failed "
+                                     f"on the card: {rb[0][1][:300]}")
+        for k in ("checked", "unsupported"):
+            if a[k] != b[k] or len(a["records"]) != len(b["records"]):
+                raise AssertionError(f"sql {name}: {k} card {b[k]} != cpu {a[k]}")
+        d, dc = gpu_d[name], cpu_d[name]
+        if d["distributed_runs"] != dc["distributed_runs"] or d["checked"] != b["checked"]:
+            raise AssertionError(f"sql {name} distributed: {d['distributed_runs']} runs, "
+                                 f"{d['checked']} checked on the card; cpu mesh "
+                                 f"{dc['distributed_runs']} runs, single {b['checked']}")
+        for i, (rs, rd) in enumerate(zip(b["records"], d["records"])):
+            if _unordered(rs[3]) != _unordered(rd[3]) or rs[0] != rd[0]:
+                raise AssertionError(f"sql {name} statement {i}: the mesh run's rows differ "
+                                     f"from the single-device card run's")
+        totals["statements"] += len(b["records"])
+        for k in ("checked", "unsupported"):
+            totals[k] += b[k]
+        totals["distributed_runs"] += d["distributed_runs"]
+        print(f"sql {name}.test: {len(b['records'])} statements, {b['checked']} checked, "
+              f"{b['unsupported']} unsupported, card == cpu; distributed "
+              f"{d['distributed_runs']} runs over 8 shards of cuda:0, rows equal; walls "
+              f"cpu {a['s']:.2f} s, card {b['s']:.2f} s, card mesh {d['s']:.2f} s, cpu mesh "
+              f"{dc['s']:.2f} s [{card}]")
+    if not totals["distributed_runs"]:
+        raise AssertionError("sql: no statement took the distributed path")
+    print(f"sql scripts: {totals['statements']} statements, {totals['checked']} checked, "
+          f"{totals['unsupported']} unsupported, {totals['distributed_runs']} distributed "
+          f"runs; card, cpu and mesh sessions agree")
+    for key, (launches, errs) in held.items():
+        print(f"sql {key} on the card: launches {launches}, each exactly its captured "
+              f"calls'; kernel == plain at every call (max abs err {errs}) [{card}]")
+    return {"totals": totals, "launches": {k: v[0] for k, v in held.items()},
+            "max_abs_err": {k: max(v[1][k] for v in held.values()) for k in
+                            ("stream_tile", "direct_agg", "stream_agg")}}
+
+
+def sql_query_phase(card: str, SA, DA, ST) -> dict:
+    """TPC-H Q1 and Q6 as SQL text through one ``RefTestSession("cuda")``
+    over SF 0.1 lineitem (the catalog's host columns as the session's
+    rows): rows and types bit-exact against ``run_query`` of the plan
+    builders on the same catalog on the card and against numpy, the
+    session's own check against the plan's answer as its recorded table.
+    The first statement is a ``held_kernel_run`` (launches exactly the
+    captured calls', each kernel == plain); then ``SQL_REPEATS`` more,
+    each checked, whose wall split is reported as medians: host
+    conversion, the engine run, the result's decode, and the rest
+    (tokenizing, parsing, the SELECT builder and the recorded-table
+    comparison)."""
+    import statistics
+
+    import torch
+
+    import tiflash_tpu_torch.plan.compiler as PC
+    from tiflash_tpu_torch.bench.tpch_queries import q1_plan, q6_plan
+    from tiflash_tpu_torch.ops.cuda import build
+    from tiflash_tpu_torch.runtime.executor import run_query
+    from tiflash_tpu_torch.storage.tpch import generate_tpch
+    from tiflash_tpu_torch.testing import oracle as O
+    from tiflash_tpu_torch.testing import reftest as R
+
+    t0 = time.perf_counter()
+    cat = generate_tpch(sf=SQL_SF, seed=SEED, tables=["lineitem"])
+    n_rows = cat["lineitem"].row_count
+    sess = R.RefTestSession(device="cuda")
+    sess.run_statement(LINEITEM_DDL, None)
+    schema = sess.tables["lineitem"][0]
+    host = O.block_to_pytable(cat.blocks("cpu")["lineitem"])
+    sess.tables["lineitem"] = (schema, {c: host[c] for c in schema})
+    del host
+    print(f"sql lineitem sf{SQL_SF}: {n_rows} rows made and loaded into the session as "
+          f"Python rows in {time.perf_counter() - t0:.1f} s")
+    gpu_tables = cat.blocks("cuda")
+    li = lineitem_arrays(cat)
+    out = {"rows": n_rows, "launches": {}, "max_abs_err": {}, "ms": {}}
+    for name, sql, plan_fn, want_np in (("q1", SQL_Q1, q1_plan, numpy_q1(li)),
+                                       ("q6", SQL_Q6, q6_plan, numpy_q6(li))):
+        plan_out, summary = run_query(plan_fn(), gpu_tables)
+        want = block_result(plan_out)
+        if want[0] != want_np:
+            raise AssertionError(f"sql {name}: run_query of the plan != numpy")
+        plan_rows = O.block_to_pytable(plan_out)
+        recorded = ["\t".join(plan_rows)] + ["\t".join(str(v) for v in r)
+                                             for r in zip(*plan_rows.values())]
+
+        def statement(wrap):
+            """One checked statement, ``wrap(run)`` around it: its wall
+            split (seconds) with ``nvcc`` of a new fused shape apart."""
+            spent = {"conversion": 0.0, "run": 0.0, "decode": 0.0}
+            blocks = []
+            real_p2b, real_cf, real_rows = O.pytable_to_block, PC.compile_fragment, R._block_rows
+
+            def p2b(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return real_p2b(*a, **k)
+                finally:
+                    torch.cuda.synchronize()
+                    spent["conversion"] += time.perf_counter() - t
+
+            def cf(plan, *a, **k):
+                fn = real_cf(plan, *a, **k)
+
+                def run(tables):
+                    t = time.perf_counter()
+                    res = fn(tables)
+                    torch.cuda.synchronize()
+                    spent["run"] += time.perf_counter() - t
+                    return res
+                return run
+
+            def rows_of(block):
+                t = time.perf_counter()
+                blocks.append(block)
+                try:
+                    return real_rows(block)
+                finally:
+                    spent["decode"] += time.perf_counter() - t
+
+            built = dict(build.BUILD_SECONDS)
+            checked = sess.checked
+            torch.cuda.synchronize()
+            O.pytable_to_block, PC.compile_fragment, R._block_rows = p2b, cf, rows_of
+            try:
+                t = time.perf_counter()
+                res = wrap(lambda: sess.run_statement(sql, recorded))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            finally:
+                O.pytable_to_block, PC.compile_fragment, R._block_rows = (
+                    real_p2b, real_cf, real_rows)
+            if sess.checked != checked + 1:
+                raise AssertionError(f"sql {name}: the session did not check its answer")
+            got = block_result(blocks[-1].compact())
+            if got != want or got[0] != want_np:
+                raise AssertionError(f"sql {name}: SQL result != run_query of the plan / "
+                                     f"numpy\n{got}\n{want}")
+            nvcc = sum(v for k, v in build.BUILD_SECONDS.items() if k not in built)
+            spent["run"] -= nvcc
+            split = {"wall": wall, "nvcc": nvcc, **spent,
+                     "parse_build_compare": wall - sum(spent.values()) - nvcc}
+            return res, split, got
+
+        (launches, errs), first, got = statement(
+            lambda run: held_kernel_run(f"sql {name}", SA, DA, ST, run))
+        reps = [statement(lambda run: run())[1] for _ in range(SQL_REPEATS)]
+        med = {k: statistics.median(r[k] for r in reps) * 1e3 for k in first}
+        run_samples = ", ".join(f"{r['run'] * 1e3:.1f}" for r in reps)
+        out["launches"][name] = launches
+        for k, e in errs.items():
+            out["max_abs_err"][k] = max(out["max_abs_err"].get(k, 0), e)
+        plan_ms = time_ms(lambda: run_query(plan_fn(), gpu_tables), 3)
+        out["ms"][name] = {"first": {k: v * 1e3 for k, v in first.items()},
+                           "median": med, "repeats": SQL_REPEATS, "plan_run_query": plan_ms}
+        print(f"sql {name} (TPC-H text) sf{SQL_SF} on cuda: {len(got[0][next(iter(got[0]))])} "
+              f"rows, bit-exact vs run_query of {plan_fn.__name__}() on the card and numpy, "
+              f"checked by the session {1 + SQL_REPEATS} times; launches stream_tile "
+              f"{launches['stream_tile']}, direct_agg {launches['direct_agg']}, stream_agg "
+              f"{launches['stream_agg']}, each exactly its captured calls'"
+              f"{', kernel == plain at every captured call' if any(launches.values()) else ''}")
+        print(f"  first statement {first['wall'] * 1e3:.1f} ms (spies and nvcc of a new "
+              f"fused shape {first['nvcc'] * 1e3:.1f} ms included); medians over "
+              f"{SQL_REPEATS} more: wall {med['wall']:.1f} ms, host conversion "
+              f"{med['conversion']:.1f} ms, parse, build and compare "
+              f"{med['parse_build_compare']:.1f} ms, engine run {med['run']:.1f} ms "
+              f"(samples {run_samples}), "
+              f"result decode {med['decode']:.1f} ms; run_query of the plan builder median "
+              f"{plan_ms:.3f} ms over 3 warm runs [{card}]")
+    return out
+
+
+def sql_phase(card: str, SA, DA, ST) -> dict:
+    """The SQL front end on the card (``sql_scripts_check``, then
+    ``sql_query_phase``): launches per script run and per SQL query, and
+    each kernel's largest error."""
+    t0 = time.perf_counter()
+    scripts = sql_scripts_check(card, SA, DA, ST)
+    queries = sql_query_phase(card, SA, DA, ST)
+    print(f"sql phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"scripts": scripts["totals"], "rows": queries["rows"], "ms": queries["ms"],
+            "launches": {**scripts["launches"], **queries["launches"]},
+            "max_abs_err": {k: max(scripts["max_abs_err"][k], queries["max_abs_err"][k])
+                            for k in scripts["max_abs_err"]}}
+
+
 def main() -> int:
     """Checks the card, starts the analytic plans' CPU runs in a worker
     process (``analytics_cpu_runs``), runs every phase (``_main``), and
@@ -4059,7 +4486,6 @@ def _main(analytic_cpu, mesh_cpu) -> int:
                   f"bound {direct_y['sector_bound_ms']:.4f} ms")
             print("  " + yardstick_line("q7_pairs direct_agg", direct_y, card))
 
-    explain_phase(card, gpu7)
 
     # ---- 6. Q3, Q10, Q4, Q22 and top-N at SF1; top-N over 100M rows --------
     # no kernel is on this path: Q3's stream aggregation has 1.5M groups
@@ -4166,7 +4592,14 @@ def _main(analytic_cpu, mesh_cpu) -> int:
     t0 = time.perf_counter()
     cpu_mesh_runs = mesh_cpu.get()
     print(f"mesh plans' CPU runs ready ({time.perf_counter() - t0:.1f} s of waiting)")
+    # EXPLAIN ANALYZE of Q7-pairs, once the worker process is idle
+    explain_phase(card, gpu7)
     mesh = mesh_phase(card, cat, cat8, cpu_mesh_runs)
+
+    # ---- 12. the SQL front end: the parity scripts, TPC-H Q1 and Q6 as SQL text ----
+    sql = sql_phase(card, SA, DA, ST)
+    sql_launches = {k: {q: v[k] for q, v in sql["launches"].items()}
+                    for k in ("stream_tile", "direct_agg", "stream_agg")}
 
     q1y = stream_y["q1"]
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "share_of_bound")
@@ -4181,7 +4614,7 @@ def _main(analytic_cpu, mesh_cpu) -> int:
 
     # the fuse cases, Q1, Q6 and Q1 at SF10, each kernel == plain
     tile_err = max(tile_err, tile_y["q1"]["max_abs_err"], tile_y["q6"]["max_abs_err"],
-                   sf10["max_abs_err"])
+                   sf10["max_abs_err"], sql["max_abs_err"]["stream_tile"])
     design = ("design_bound_ms", "share_of_design_bound")
     tile = dict(entry("stream_tile", "tiflash_tpu/ops/pallas/stream_agg.py:160",
                       main_path_launches, tile_err, tile_y["q1"]),
@@ -4189,6 +4622,7 @@ def _main(analytic_cpu, mesh_cpu) -> int:
                 tile_function="tiflash_tpu/ops/pallas/stream_agg.py:88",
                 loader_launches=loader["launches"],
                 mesh_launches=mesh["stream_tile_launches"],
+                sql_launches=sql_launches["stream_tile"],
                 service_launches={n: v["stream_tile"] for n, v in service["launches"].items()},
                 unfused_ms=tile_y["q1"]["unfused_ms"], build_seconds=generated_build_s,
                 **{k: tile_y["q1"][k] for k in design},
@@ -4202,13 +4636,17 @@ def _main(analytic_cpu, mesh_cpu) -> int:
         # the planes kernel: off the main path since the generated kernel
         # (0 launches there), timed at the planes evaluate makes on the card
         dict(entry("stream_agg", "tiflash_tpu/ops/pallas/stream_agg.py:160",
-                   planes_launches, max_err, q1y), on_main_path=False,
+                   planes_launches, max(max_err, sql["max_abs_err"]["stream_agg"]), q1y),
+             on_main_path=False,
+             sql_launches=sql_launches["stream_agg"],
              mesh_launches=mesh["stream_agg_launches"],
              q6={k: stream_y["q6"][k] for k in keys if k in stream_y["q6"]}),
         dict(entry("direct_agg", "tiflash_tpu/ops/pallas/direct_agg.py:116",
-                   q7_launches, max(direct_err, mesh["direct_agg_max_abs_err"]), direct_y),
+                   q7_launches, max(direct_err, mesh["direct_agg_max_abs_err"],
+                                    sql["max_abs_err"]["direct_agg"]), direct_y),
              analytics_launches=analytic_launches,
              mesh_launches=mesh["direct_agg_launches"],
+             sql_launches=sql_launches["direct_agg"],
              # Q7-pairs over the mesh: its per-shard calls, each kernel == plain
              mesh_q7_pairs={k: mesh["q7_pairs"][k] for k in (
                  "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},

@@ -1,15 +1,15 @@
 """The reference's declarative cases (``tests/cases/*.json``) through the
-port: each case's tables are made by the reference's
-``oracle.pytable_to_block`` and carried into the port
-(``testing/bridge.py:export_blocks`` -> ``blocks_from_numpy``), its plan
-JSON loads through the port's ``plan/serde.py``, and it runs through the
-port's ``run_query`` on the CPU.  Each gives its expected rows (exact:
-integers, decimals, dates and strings), with no capacity retry and every
-overflow flag 0.  Then the distributed half of the reference's
-``testing/declarative.py:run_case``: unless the case says
-``"distributed": false``, ``distribute_plan`` of its plan runs through
-``run_query`` over ``Mesh([cpu] * 8)``, in both shuffle wire modes, and
-gives the expected rows in any order (shuffles reorder rows).
+port's ``testing/declarative.py:run_case`` on the CPU: each case's tables
+are made by the port's ``oracle.pytable_to_block``, its plan JSON loads
+through the port's ``plan/serde.py``, and it runs through
+``compile_fragment`` (every overflow flag 0) and ``run_query`` (no
+capacity retry), each giving its expected rows (exact: integers,
+decimals, dates and strings).  Then the distributed half: unless the case
+says ``"distributed": false``, ``distribute_plan`` of its plan runs over
+``Mesh([cpu] * 8)`` and gives the expected rows in any order (shuffles
+reorder rows): through ``run_case`` with the default exchange (padded
+on the CPU), and here once more with the ragged wire mode.  Both results
+are judged once more by the reference's oracle.
 """
 
 import os
@@ -18,23 +18,19 @@ import types
 import pytest
 
 from tiflash_tpu.core import dtypes as JD
-from tiflash_tpu.plan import serde as j_serde
 from tiflash_tpu.testing import declarative as JDecl
 from tiflash_tpu.testing import oracle as O
 
 from tiflash_tpu_torch.mpp.mesh import cpu_mesh
-from tiflash_tpu_torch.plan import serde as t_serde
+from tiflash_tpu_torch.plan import serde
 from tiflash_tpu_torch.plan.auto import distribute_plan
-from tiflash_tpu_torch.plan.compiler import compile_fragment
-from tiflash_tpu_torch.runtime.executor import run_query
-from tiflash_tpu_torch.storage.catalog import blocks_from_numpy
-from tiflash_tpu_torch.testing.bridge import export_blocks
+from tiflash_tpu_torch.testing.declarative import (_case_blocks, discover_cases,
+                                                   load_case, run_case)
 
-from torch_dist_parity import one_torch_thread  # noqa: F401
-from torch_dist_parity import run_mesh
+from torch_dist_parity import one_torch_thread, run_mesh  # noqa: F401
 
 CASES_DIR = os.path.join(os.path.dirname(__file__), "cases")
-CASES = sorted(f for f in os.listdir(CASES_DIR) if f.endswith(".json"))
+CASES = [os.path.basename(p) for p in discover_cases(CASES_DIR)]
 
 
 def port_pytable(block) -> dict:
@@ -49,47 +45,23 @@ def port_pytable(block) -> dict:
     return O.block_to_pytable(view)
 
 
-def case_tables(case) -> dict:
-    """The case's tables as port blocks on the CPU, made by the
-    reference's oracle (as its ``run_case`` does)."""
-    schemas = {t: {c: j_serde.dtype_from_json(d) for c, d in spec["schema"].items()}
-               for t, spec in case["tables"].items()}
-    blocks = {}
-    for t, spec in case["tables"].items():
-        rows = {c: [JDecl._decode_value(v, schemas[t][c]) for v in vals]
-                for c, vals in spec["rows"].items()}
-        blocks[t] = O.pytable_to_block(rows, schemas[t])
-    return blocks_from_numpy(export_blocks(blocks), "cpu")
-
-
-def run_case(case) -> None:
-    """Run one case through the port's serde and ``run_query``; assert its
-    expected rows, no retry, and every overflow flag of the tree that ran
-    at 0."""
-    tables = case_tables(case)
-    plan = t_serde.plan_from_json(case["plan"])
-    out, summary = run_query(plan, tables)
-    assert summary.retries == 0, (case["name"], summary.overflow_nodes)
+@pytest.mark.parametrize("fname", CASES)
+def test_declarative_case(fname):
+    case = load_case(os.path.join(CASES_DIR, fname))
+    mesh = cpu_mesh(8)
+    out = run_case(case, device="cpu", mesh=mesh)
     got = port_pytable(out)
     expect = {c: list(vals) for c, vals in case["expect"].items()}
     O.assert_tables_equal(got, JDecl._normalize(expect, got),
                           ordered=case.get("ordered", False))
-    # the plan as given, through the compiler: every flag is 0
-    _, flags = compile_fragment(t_serde.plan_from_json(case["plan"]))(tables)
-    assert {k: int(v) for k, v in flags.items() if int(v)} == {}, case["name"]
     if case.get("distributed", True):
+        tables = _case_blocks(case, "cpu")
         stats = {t: b.capacity for t, b in tables.items()}
-        for mode in ("padded", "ragged"):
-            dist = distribute_plan(t_serde.plan_from_json(case["plan"]), stats, 8)
-            dout, dsum = run_mesh(dist, tables, mode, mesh=cpu_mesh(8))
-            assert dsum.num_devices == 8
-            dgot = port_pytable(dout)
-            O.assert_tables_equal(dgot, JDecl._normalize(expect, dgot), ordered=False)
-
-
-@pytest.mark.parametrize("fname", CASES)
-def test_declarative_case(fname):
-    run_case(JDecl.load_case(os.path.join(CASES_DIR, fname)))
+        dist = distribute_plan(serde.plan_from_json(case["plan"]), stats, mesh.size)
+        dout, dsum = run_mesh(dist, tables, "ragged", mesh=mesh)
+        assert dsum.num_devices == mesh.size
+        dgot = port_pytable(dout)
+        O.assert_tables_equal(dgot, JDecl._normalize(expect, dgot), ordered=False)
 
 
 def test_there_are_nine_cases():

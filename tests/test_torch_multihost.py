@@ -73,3 +73,21 @@ def test_two_process_multihost():
         got = json.loads(line[-1][len("RESULT"):])
         for name, table in want.items():
             O.assert_tables_equal(got[name], table)
+
+
+def test_no_card_raises_instead_of_a_cpu_group():
+    """Without a card, the defaults (NCCL, the process's card) raise; the
+    CPU is taken only when the caller names it, as the worker above does."""
+    import pytest
+    import torch
+    import torch.distributed as dist
+
+    from tiflash_tpu_torch.mpp.multihost import global_mesh, init_multihost
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the defaults take it")
+    with pytest.raises(RuntimeError, match="NCCL needs a card"):
+        init_multihost("127.0.0.1:1", num_processes=1, process_id=0)
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="no card is visible"):
+        global_mesh(local_shards=2)

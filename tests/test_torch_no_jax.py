@@ -41,7 +41,8 @@ for m in ("ops.join", "ops.merge", "ops.cuda.direct_agg", "plan.rewrite",
           "runtime.outofcore", "runtime.analyze", "plan.auto", "ops.vector",
           "storage.native_loader", "storage.system", "mpp.service", "cli",
           "runtime.native", "testing.tbl", "mpp.mesh", "mpp.runner",
-          "mpp.multihost", "exchange.shuffle", "plan.distribute", "demo"):
+          "mpp.multihost", "exchange.shuffle", "plan.distribute", "demo",
+          "testing.reftest", "testing.oracle", "testing.declarative"):
     assert "tiflash_tpu_torch." + m in names, m
 for f in ("analytics_phase", "numpy_rollup", "numpy_window_report",
           "numpy_stats_grouped", "numpy_stats_first", "numpy_stats_stream",
@@ -55,6 +56,9 @@ for f in ("outofcore_phase", "outofcore_predictions", "runtime_controls_phase",
 for f in ("vector_phase", "loader_phase", "service_phase", "mesh_phase", "mesh_cpu_runs",
           "mesh_runner", "mesh_run", "mesh_direct_agg_check", "mesh_sf10_phase",
           "exchange_bytes"):
+    assert callable(getattr(chip_smoke, f)), f
+for f in ("sql_phase", "sql_script_runs", "sql_scripts_check", "sql_query_phase",
+          "held_kernel_run", "planes_equal_plain"):
     assert callable(getattr(chip_smoke, f)), f
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "tiflash_tpu."))

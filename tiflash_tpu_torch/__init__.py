@@ -10,4 +10,6 @@ The package imports torch and never jax.  There is no global device:
 every tensor is created on a device its caller names.
 """
 
+from .core.block import Block, Column, column_from_numpy  # noqa: F401
+
 __version__ = "0.1.0"

@@ -25,6 +25,25 @@ import torch
 from .dtypes import DataType
 
 
+# torch's unsigned 16/32/64-bit tensors support few operations on CUDA
+# (no indexing, no cat): code that only moves values moves their signed
+# bit patterns
+_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+                torch.uint64: torch.int64}
+
+
+def signed_bits(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or an unsigned tensor's bits as the signed type of
+    its width (a view)."""
+    v = _SIGNED_VIEW.get(t.dtype)
+    return t if v is None else t.view(v)
+
+
+def as_dtype_bits(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The inverse of ``signed_bits``: ``t``'s bits viewed as ``dtype``."""
+    return t.view(dtype) if dtype in _SIGNED_VIEW else t
+
+
 @dataclasses.dataclass
 class Column:
     """One column: fixed-width values + optional validity mask.
@@ -79,11 +98,7 @@ class Column:
         """Gather rows.  With ``fill_invalid`` negative indices give NULL
         rows.  A gather only permutes or subsets values, so stats hold."""
         safe = indices.clamp(min=0).long()
-        if self.data.dtype == torch.uint64:
-            # CUDA torch cannot index uint64: gather the int64 bit patterns
-            data = self.data.view(torch.int64)[safe].view(torch.uint64)
-        else:
-            data = self.data[safe]
+        data = as_dtype_bits(signed_bits(self.data)[safe], self.data.dtype)
         validity = None if self.validity is None else self.validity[safe]
         if fill_invalid:
             ok = indices >= 0
@@ -143,6 +158,104 @@ def make_narrow32(host: np.ndarray, stats: Optional[Tuple[int, int]],
     with np.errstate(over="ignore"):
         arr = host.astype(np.int32)
     return torch.as_tensor(arr, device=device)
+
+
+def _json_order_key(s: str):
+    """Total order matching MySQL JSON comparison precedence (number <
+    string < object < array < boolean)."""
+    import json
+
+    def k(v):
+        if v is None:
+            return (0,)
+        if isinstance(v, bool):
+            return (6, v)
+        if isinstance(v, (int, float)):
+            return (1, float(v))
+        if isinstance(v, str):
+            return (2, v)
+        if isinstance(v, dict):
+            return (3, len(v),
+                    tuple(sorted((kk, k(vv)) for kk, vv in v.items())))
+        return (4, tuple(k(x) for x in v), len(v))
+
+    try:
+        return k(json.loads(s)) if s else (0,)
+    except Exception:
+        return (9, s)
+
+
+def column_from_numpy(values: Sequence, dtype: DataType,
+                      validity: Optional[Sequence[bool]] = None,
+                      device="cuda") -> Column:
+    """A Column on ``device`` from host values, with the reference's
+    statistics (range, int32 shadow, exact domain of up to 4096 values
+    in columns of up to 65536 rows).  STRING values are python strings,
+    dictionary-encoded here by rank in their sorted set (JSON columns by
+    MySQL's JSON order), so code order is string order.  A wide decimal
+    takes python int mantissas."""
+    def put(host):
+        return torch.as_tensor(host, device=device)
+
+    if dtype.is_vector:
+        dims = dtype.precision
+        rows = [np.zeros(dims, dtype=np.float32) if v is None
+                else np.asarray(v, dtype=np.float32) for v in values]
+        data = np.stack(rows) if rows else np.zeros((0, dims), dtype=np.float32)
+        if validity is None and any(x is None for x in values):
+            validity = [x is not None for x in values]
+        v = None if validity is None else put(np.asarray(validity, dtype=bool))
+        return Column(put(data), v, dtype)
+    codes = dictionary = None
+    if dtype.is_string:
+        values = list(values)
+        strs = ["" if s is None else s for s in values]
+        uniq = sorted(set(strs), key=_json_order_key if dtype.mysql_json else None)
+        rank = {s: i for i, s in enumerate(uniq)}
+        codes = np.fromiter((rank[s] for s in strs), dtype=np.int32, count=len(strs))
+        data = codes
+        dictionary = tuple(uniq)
+    elif dtype.is_wide_decimal:
+        # python int mantissas -> L int64 limbs, top limb signed, the
+        # others in [0, 10^18) (core/wide.py's layout)
+        W18 = 10 ** 18
+        L = dtype.decimal_limbs
+        data = np.zeros((len(values), L), dtype=np.int64)
+        for i, x in enumerate(values):
+            x = 0 if x is None else int(x)
+            for j in range(L - 1, 0, -1):
+                data[i, j] = x % W18
+                x //= W18
+            data[i, 0] = x
+    else:
+        data = np.asarray(values, dtype=dtype.physical)
+    if validity is None and dtype.is_string and any(s is None for s in values):
+        validity = [s is not None for s in values]
+    v = None if validity is None else put(np.asarray(validity, dtype=bool))
+    stats = narrow = domain = None
+    if dtype.is_string:
+        narrow = make_narrow32(codes, (0, max(0, len(dictionary) - 1)), device)
+    elif not dtype.is_wide_decimal:
+        host = data if validity is None else data[np.asarray(validity, dtype=bool)]
+        if host.size and np.issubdtype(host.dtype, np.integer):
+            stats = (int(host.min()), int(host.max()))
+            narrow = make_narrow32(data, stats, device)
+            if host.size <= 65536:
+                uniq = np.unique(host)
+                if uniq.size <= 4096:
+                    domain = tuple(int(x) for x in uniq)
+        elif host.size and np.issubdtype(host.dtype, np.floating) \
+                and np.isfinite(host).all():
+            # the integer envelope of a float column (the rounded
+            # int-LUT string producers over doubles read it)
+            stats = (int(np.floor(host.min() + 0.5)) - 1,
+                     int(np.floor(host.max() + 0.5)) + 1)
+            if host.size <= 65536:
+                uniq = np.unique(host)
+                if uniq.size <= 4096:
+                    domain = tuple(float(x) for x in uniq)
+    return Column(put(data), v, dtype, dictionary, stats=stats, narrow32=narrow,
+                  domain=domain)
 
 
 @dataclasses.dataclass
@@ -259,4 +372,5 @@ class Block:
         return {n: c.to_pylist(sel) for n, c in zip(self.names, self.columns)}
 
 
-__all__ = ["Column", "Block", "make_narrow32"]
+__all__ = ["Column", "Block", "make_narrow32", "column_from_numpy", "signed_bits",
+           "as_dtype_bits"]

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -108,6 +109,12 @@ class DataType:
     # as UTC microseconds and shift into the session time zone at column
     # read (``expr/compile.py``, ``query_timezone``).
     tz_aware: bool = False
+    # ENUM members in declaration order (kind == STRING only): an ENUM's
+    # numeric value is its 1-based index, not the string's numeric parse
+    enum_values: Optional[Tuple[str, ...]] = None
+    # MySQL YEAR columns (a small int) compare against DATE/DATETIME as
+    # year-01-01
+    mysql_year: bool = False
     # JSON columns ride the STRING representation (normalized text); the
     # flag makes JSON builders embed the value as a document, not a quoted
     # string, and casts out of JSON unquote a JSON string first

@@ -48,7 +48,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from ..core.block import Block, Column
+from ..core.block import Block, Column, as_dtype_bits, signed_bits
 from ..ops.hashing import hash_block_keys, partition_ids
 from ..runtime.metrics import METRICS
 
@@ -77,16 +77,13 @@ def _local_group_by_partition(block: Block, pids: torch.Tensor, num_parts: int):
 
 
 def _arrays(col: Column):
-    """The tensors a column moves: data (uint64 as its int64 bits) and
-    validity."""
-    d = col.data.view(torch.int64) if col.data.dtype == torch.uint64 else col.data
-    return d, col.validity
+    """The tensors a column moves: data (an unsigned column as its signed
+    bits) and validity."""
+    return signed_bits(col.data), col.validity
 
 
 def _rebuild(col: Column, data: torch.Tensor, validity) -> Column:
-    if col.data.dtype == torch.uint64:
-        data = data.view(torch.uint64)
-    return Column(data, validity, col.dtype, col.dictionary, stats=col.stats,
+    return Column(as_dtype_bits(data, col.data.dtype), validity, col.dtype, col.dictionary, stats=col.stats,
                   concat_sep=col.concat_sep)
 
 

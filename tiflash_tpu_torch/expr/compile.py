@@ -1727,6 +1727,11 @@ def _like_to_regex(pattern: str, escape: str = "\\") -> str:
     return "".join(out)
 
 
-__all__ = ["ExprEvaluator", "infer_literal_dtype", "_float_to_decimal",
+def evaluate_expr(expr: Expr, block: Block) -> Column:
+    """``expr`` over ``block``'s rows, as one Column on the block's device."""
+    return ExprEvaluator(block).evaluate(expr)
+
+
+__all__ = ["evaluate_expr", "ExprEvaluator", "infer_literal_dtype", "_float_to_decimal",
            "_literal_days", "_like_to_regex", "query_clock", "query_timezone",
            "query_now_us", "query_tz_us", "parse_tz_offset_us"]

@@ -877,8 +877,12 @@ def _cast_string_lut(col: Column, target: DataType) -> Column:
     NULL, a fraction rounds half away from zero into an integer."""
     num_rx = re.compile(r"^\s*[+-]?(\d+(\.\d*)?|\.\d+)([eE][+-]?\d+)?")
     d = col.dictionary or ()
+    enum_vals = col.dtype.enum_values
 
     def parse_num(s: str) -> float:
+        if enum_vals is not None:
+            # an ENUM's numeric value is its 1-based declaration index ('' = 0)
+            return float(enum_vals.index(s) + 1) if s in enum_vals else 0.0
         m = num_rx.match(s)
         return float(m.group(0)) if m else 0.0
 

@@ -3,14 +3,16 @@
 Counterpart of ``tiflash_tpu/mpp/multihost.py``.  Role analog: the
 reference's multi-node MPP cluster.  The same program runs in every
 process; each process holds its local shards, and a mesh's collectives
-cross processes through the process group (gloo on the CPU, NCCL on
-cards), while the collectives among one process's shards stay those of
-``mpp/mesh.py``.
+cross processes through the process group (NCCL between cards by
+default; gloo when the caller asks for it and for the CPU), while the
+collectives among one process's shards stay those of ``mpp/mesh.py``.
 
     from tiflash_tpu_torch.mpp.multihost import (global_mesh, init_multihost,
         replicate_result, shard_local_blocks)
     init_multihost("127.0.0.1:29500", num_processes=N, process_id=i)
-    mesh = global_mesh(local_shards=2)        # 2 shards in each process
+    mesh = global_mesh(local_shards=2)        # 2 shards on this process's card
+    # on the CPU, say so:
+    # init_multihost(..., backend="gloo"); global_mesh(2, device="cpu")
     tables = shard_local_blocks(local_blocks, mesh)
     out, flags = compile_distributed(plan, mesh)(tables)
     block = collect_result(replicate_result(out, mesh))
@@ -26,19 +28,23 @@ from typing import Dict, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from ..core.block import Block
+from ..core.block import Block, as_dtype_bits, signed_bits
 from .mesh import Mesh
 from .runner import AXIS, concat_shards, shard_block
 
 
 def init_multihost(coordinator: str, num_processes: int, process_id: int,
                    backend: Optional[str] = None, **kw) -> None:
-    """Join the process group at ``coordinator`` ("host:port"): NCCL when
-    a card is visible, else gloo.  A no-op when already initialized."""
+    """Join the process group at ``coordinator`` ("host:port") over
+    ``backend``, NCCL unless the caller names another (``"gloo"`` for a
+    group on the CPU).  Raises when NCCL is asked for and no card is
+    visible.  A no-op when already initialized."""
     if dist.is_initialized():
         return
-    if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    backend = backend or "nccl"
+    if backend == "nccl" and not torch.cuda.is_available():
+        raise RuntimeError("init_multihost: NCCL needs a card and none is visible; "
+                           "pass backend=\"gloo\" to run the group on the CPU")
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=num_processes, rank=process_id, **kw)
 
@@ -151,14 +157,14 @@ class ProcessMesh(Mesh):
 
 def global_mesh(local_shards: int = 1, device=None, axis: str = AXIS) -> ProcessMesh:
     """One flat mesh over every process's ``local_shards`` shards, all of
-    a process's shards on its ``device`` (default: its card by rank, or
-    the CPU)."""
+    a process's shards on its ``device`` (default: its card by rank;
+    raises when no card is visible — pass ``device="cpu"`` for the CPU)."""
     if device is None:
-        if torch.cuda.is_available():
-            device = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
-            torch.cuda.set_device(device)
-        else:
-            device = torch.device("cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError("global_mesh: no card is visible; pass device=\"cpu\" "
+                               "to place the shards on the CPU")
+        device = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+        torch.cuda.set_device(device)
     return ProcessMesh([torch.device(device)] * local_shards, axis)
 
 
@@ -181,10 +187,7 @@ def replicate_result(out: Sequence[Block], mesh: Mesh) -> List[Block]:
 
     cols = []
     for c in local.columns:
-        data = c.data.view(torch.int64) if c.data.dtype == torch.uint64 else c.data
-        data = mesh._global_cat([data])
-        if c.data.dtype == torch.uint64:
-            data = data.view(torch.uint64)
+        data = as_dtype_bits(mesh._global_cat([signed_bits(c.data)]), c.data.dtype)
         validity = None if c.validity is None else mesh._global_cat([c.validity])
         cols.append(Column(data, validity, c.dtype, c.dictionary, stats=c.stats,
                            concat_sep=c.concat_sep))

@@ -44,7 +44,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..core.block import Block, Column
+from ..core.block import Block, Column, as_dtype_bits, signed_bits
 from ..exchange.shuffle import allgather_block, shuffle_block
 from ..expr.compile import ExprEvaluator
 from ..ops import join as J
@@ -92,10 +92,8 @@ def shard_block(block: Block, mesh: Mesh) -> List[Block]:
         dev = mesh.devices[i]
         cols = []
         for c in block.columns:
-            data = c.data.view(torch.int64) if c.data.dtype == torch.uint64 else c.data
-            data = _slice_pad(data, lo, hi, n, 0, dev)
-            if c.data.dtype == torch.uint64:
-                data = data.view(torch.uint64)
+            data = as_dtype_bits(_slice_pad(signed_bits(c.data), lo, hi, n, 0, dev),
+                                 c.data.dtype)
             validity = (None if c.validity is None
                         else _slice_pad(c.validity, lo, hi, n, False, dev))
             cols.append(Column(data, validity, c.dtype, c.dictionary,
@@ -118,13 +116,8 @@ def concat_shards(blocks: Sequence[Block], device=None) -> Block:
     cols = []
     for ci, c0 in enumerate(blocks[0].columns):
         shard_cols = [b.columns[ci] for b in blocks]
-        datas = []
-        for c in shard_cols:
-            d = c.data.view(torch.int64) if c.data.dtype == torch.uint64 else c.data
-            datas.append(Mesh._to(d, dev))
-        data = torch.cat(datas)
-        if c0.data.dtype == torch.uint64:
-            data = data.view(torch.uint64)
+        data = as_dtype_bits(torch.cat([Mesh._to(signed_bits(c.data), dev)
+                                        for c in shard_cols]), c0.data.dtype)
         validity = None
         if any(c.validity is not None for c in shard_cols):
             validity = torch.cat([Mesh._to(c.valid_mask(), dev) for c in shard_cols])

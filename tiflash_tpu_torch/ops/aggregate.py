@@ -357,6 +357,26 @@ def _identity_for(func: str, dtype: DataType):
     return 0
 
 
+_U64_FLIP = -(1 << 63)
+
+
+def _minmax_data(col: Column) -> Tuple[torch.Tensor, DataType]:
+    """``col``'s values in an order torch can reduce, and their type: a
+    BIGINT UNSIGNED column's bit patterns with the sign bit flipped, as
+    int64 (whose order is then the unsigned order; ``torch.uint64`` has
+    no min or max)."""
+    if col.data.dtype == torch.uint64:
+        return col.data.view(torch.int64) ^ _U64_FLIP, INT64
+    return col.data, col.dtype
+
+
+def _minmax_back(red: torch.Tensor, col: Column) -> torch.Tensor:
+    """The inverse of ``_minmax_data`` on reduced values."""
+    if col.data.dtype == torch.uint64:
+        return (red ^ _U64_FLIP).view(torch.uint64)
+    return red
+
+
 def _segment_reduce(func: str, vals: torch.Tensor, idx: torch.Tensor,
                     num_segments: int, ident) -> torch.Tensor:
     """Per-segment min or max of ``vals`` by segment ids ``idx`` (empty
@@ -698,11 +718,13 @@ def _accumulate(
             continue
         if a.func == "quantile":
             rdt = agg_result_dtype(a.func, col.dtype)
-            ident = _identity_for("max", col.dtype)
-            vals = torch.where(base & distinct_flags[a.name], col.data,
-                               torch.full((), ident, dtype=col.data.dtype,
+            data, odt = _minmax_data(col)
+            ident = _identity_for("max", odt)
+            vals = torch.where(base & distinct_flags[a.name], data,
+                               torch.full((), ident, dtype=data.dtype,
                                           device=live.device))
             red = _segment_reduce("max", vals, idx, num_slots + 1, ident)[:num_slots]
+            red = _minmax_back(red, col)
             out.append((a.name, Column(red.to(rdt.torch_dtype), cnt > 0, rdt,
                                        col.dictionary)))
             continue
@@ -727,11 +749,13 @@ def _accumulate(
             continue
         if a.func in ("min", "max"):
             rdt = agg_result_dtype(a.func, col.dtype)
-            ident = _identity_for(a.func, col.dtype)
-            vals = torch.where(valid_row, col.data,
-                               torch.full((), ident, dtype=col.data.dtype,
+            data, odt = _minmax_data(col)
+            ident = _identity_for(a.func, odt)
+            vals = torch.where(valid_row, data,
+                               torch.full((), ident, dtype=data.dtype,
                                           device=live.device))
             red = _segment_reduce(a.func, vals, idx, num_slots + 1, ident)[:num_slots]
+            red = _minmax_back(red, col)
             out.append((a.name, Column(red.to(rdt.torch_dtype), cnt > 0, rdt,
                                        col.dictionary)))
             continue
@@ -788,15 +812,16 @@ def _accumulate_masked(
             continue
         if a.func in ("min", "max"):
             rdt = agg_result_dtype(a.func, col.dtype)
-            ident = torch.full((), _identity_for(a.func, col.dtype),
-                               dtype=col.data.dtype, device=live.device)
+            data, odt = _minmax_data(col)
+            ident = torch.full((), _identity_for(a.func, odt),
+                               dtype=data.dtype, device=live.device)
             red_fn = torch.amin if a.func == "min" else torch.amax
 
-            def reduce_slot(s, _col=col, _valid=valid, _ident=ident, _fn=red_fn):
-                vals = torch.where(slot_masks[s] & _valid, _col.data, _ident)
+            def reduce_slot(s, _data=data, _valid=valid, _ident=ident, _fn=red_fn):
+                vals = torch.where(slot_masks[s] & _valid, _data, _ident)
                 return _fn(vals) if vals.numel() else _ident
 
-            reds = per_slot(reduce_slot)
+            reds = _minmax_back(per_slot(reduce_slot), col)
             out.append((a.name, Column(reds.to(rdt.torch_dtype), cnts > 0, rdt,
                                        col.dictionary)))
             continue
@@ -1144,12 +1169,14 @@ def _stream_accumulate_batched(
             continue
         if a.func in ("min", "max"):
             rdt = agg_result_dtype(a.func, col.dtype)
-            ident = _identity_for(a.func, col.dtype)
-            vals = torch.where(valid_row, col.data,
-                               torch.full((), ident, dtype=col.data.dtype,
+            data, odt = _minmax_data(col)
+            ident = _identity_for(a.func, odt)
+            vals = torch.where(valid_row, data,
+                               torch.full((), ident, dtype=data.dtype,
                                           device=live.device))
             red = _segment_reduce(a.func, vals, gids.long(), num_slots + 1,
                                   ident)[:num_slots]
+            red = _minmax_back(red, col)
             out.append((a.name, Column(red.to(rdt.torch_dtype), cnt > 0, rdt,
                                        col.dictionary)))
             continue

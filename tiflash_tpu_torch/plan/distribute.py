@@ -64,6 +64,7 @@ def split_aggregation(
         cd = [a for a in aggs if a.func == "count_distinct"]
         others = [a for a in aggs if a.func != "count_distinct"]
         if (cd and all(a.filter_col is None for a in cd)
+                and len({a.arg for a in cd}) == 1
                 and all(o.func in ("sum", "count", "min", "max",
                                    "bit_and", "bit_or", "bit_xor")
                         for o in others)):

@@ -59,7 +59,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.block import Block, Column
+from ..core.block import Block, Column, as_dtype_bits, signed_bits
 from ..exchange.skew import concat_blocks
 from ..plan import nodes as P
 from ..plan.compiler import compile_fragment
@@ -388,10 +388,8 @@ class _HostPartitions:
             # the host
             idx = torch.from_numpy(order).to(self.device)
 
-            def grouped(t):
-                if t.dtype == torch.uint64:  # CUDA cannot index uint64
-                    return t.view(torch.int64)[idx].view(torch.uint64).cpu().numpy()
-                return t[idx].cpu().numpy()
+            def grouped(t):  # CUDA cannot index an unsigned 32/64-bit tensor
+                return as_dtype_bits(signed_bits(t)[idx], t.dtype).cpu().numpy()
         else:
             def grouped(t):
                 return t.numpy()[order]
