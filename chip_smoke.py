@@ -105,7 +105,22 @@ random data from seed 0:
   ``run_query`` of ``q1_plan()`` / ``q6_plan()`` on the same catalog on
   the card and against numpy, each kernel's launches printed and held
   kernel == plain at every captured call, the wall split into host
-  conversion, plan build, the engine run and the result's decode.
+  conversion, plan build, the engine run and the result's decode;
+- the judges (``oracle_phase``, last), with the port's own oracle
+  (``testing/plan_oracle.py``): the 126 trees of the two fuzzers, drawn
+  by ``tests/torch_plan_draw.py`` (loaded by path; the reference
+  fuzzer's 60 plan, 16 window and 10 grouping-set seeds, the port
+  fuzzer's 40), each on ``cuda`` judged as the reference's fuzzer judges
+  (sorted rows, floats to 6 places or within 1e-9 where that rounding
+  splits two sums, a LIMIT by its row count), equal to the port's CPU run
+  and launching what that run's captured calls predict; the 99 non-LIMIT
+  ones again over ``Mesh([cuda:0] * 8)``, equal to the single-device run
+  and judged; then the two kernels' shapes over 200,000 generated rows,
+  5 seeds each (TPC-H Q1's for the fused kernel, a GROUP BY of about
+  1,000 dictionary values behind a filter for direct_agg), with exactly
+  the launches the CPU spy predicts, every captured call kernel ==
+  plain, rows equal to the CPU run and judged by the oracle, whose
+  answers a pool of spawned workers computes meanwhile.
 
 Each kernel is held against its plain version (``torch.equal``) on edge
 cases, and timed at the query's own arguments beside one ``index_add_``
@@ -3901,17 +3916,9 @@ def held_kernel_run(what: str, SA, DA, ST, run) -> tuple:
     kernel."""
     import torch
 
-    calls = {}
-
-    def with_sa():
-        calls["stream_agg"] = capture_calls(SA, "group_sums", run)
-
-    def with_st():
-        calls["stream_tile"] = capture_calls(ST, "fused_group_sums", with_sa)
-
     torch.cuda.synchronize()
     SA.LAUNCHES = DA.LAUNCHES = ST.LAUNCHES = 0
-    calls["direct_agg"] = capture_calls(DA, "group_sums", with_st)
+    calls = capture_kernel_calls(run)
     torch.cuda.synchronize()
     launches = {"stream_tile": ST.LAUNCHES, "direct_agg": DA.LAUNCHES,
                 "stream_agg": SA.LAUNCHES}
@@ -3920,11 +3927,7 @@ def held_kernel_run(what: str, SA, DA, ST, run) -> tuple:
             # (inputs, program, S, n_limbs, n_rows, plane_fields, headroom, device)
             "stream_tile": [c for c in calls["stream_tile"]
                             if _on_card(c[7] if len(c) > 7 and c[7] is not None else c[0])]}
-    predicted = {
-        "direct_agg": sum(len(DA.launch_plan(c[2], len(DA._value_list(c[1])) + 1))
-                          for c in card["direct_agg"] if c[0].shape[0]),
-        "stream_agg": sum(1 for c in card["stream_agg"] if c[0].shape[0]),
-        "stream_tile": sum(1 for c in card["stream_tile"] if c[4] > 0)}
+    predicted = launches_of(DA, card)
     if launches != predicted:
         raise AssertionError(f"{what}: launches {launches}, the captured calls make "
                              f"{predicted}")
@@ -4193,6 +4196,290 @@ def sql_phase(card: str, SA, DA, ST) -> dict:
             "launches": {**scripts["launches"], **queries["launches"]},
             "max_abs_err": {k: max(scripts["max_abs_err"][k], queries["max_abs_err"][k])
                             for k in scripts["max_abs_err"]}}
+
+
+# ---- the judges: generated plans and the two kernels' shapes, held against
+# the port's oracle ---------------------------------------------------------------
+
+ORACLE_WORKERS = 3     # processes computing the families' CPU side and oracle answers
+KERNEL_NAMES = ("stream_tile", "direct_agg", "stream_agg")
+
+
+def load_draw():
+    """``tests/torch_plan_draw.py`` of this checkout, loaded by path: the
+    fuzzers' generators (jax-free), the two kernels' families and the
+    judge."""
+    import importlib.util
+    from pathlib import Path
+
+    name = "torch_plan_draw"
+    if name not in sys.modules:
+        path = Path(__file__).resolve().parent / "tests" / "torch_plan_draw.py"
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[name]
+
+
+def launches_of(DA, calls: dict) -> dict:
+    """The launches a run's captured kernel-wrapper calls make on the card:
+    direct_agg one per ``launch_plan`` column group of each call with rows,
+    stream_tile and the planes kernel one per call with rows."""
+    return {
+        "stream_tile": sum(1 for c in calls["stream_tile"] if c[4] > 0),
+        "direct_agg": sum(len(DA.launch_plan(c[2], len(DA._value_list(c[1])) + 1))
+                          for c in calls["direct_agg"] if c[0].shape[0]),
+        "stream_agg": sum(1 for c in calls["stream_agg"] if c[0].shape[0])}
+
+
+def capture_kernel_calls(run) -> dict:
+    """Every call ``run()`` makes to a kernel wrapper (``capture_calls``),
+    keyed by kernel: direct_agg's and the planes kernel's ``group_sums``
+    and the generated kernel's ``fused_group_sums``."""
+    from tiflash_tpu_torch.ops.cuda import direct_agg as DA, stream_agg as SA
+    from tiflash_tpu_torch.ops.cuda import stream_tile as ST
+
+    calls = {}
+
+    def with_sa():
+        calls["stream_agg"] = capture_calls(SA, "group_sums", run)
+
+    def with_st():
+        calls["stream_tile"] = capture_calls(ST, "fused_group_sums", with_sa)
+
+    calls["direct_agg"] = capture_calls(DA, "group_sums", with_st)
+    return calls
+
+
+def spied_cpu_run(run) -> tuple:
+    """``run()`` on the CPU with every kernel wrapper's calls captured:
+    (its value, the launches the same run makes on the card, the
+    generated stream_tile sources it needs)."""
+    from tiflash_tpu_torch.ops.cuda import direct_agg as DA, stream_agg as SA
+    from tiflash_tpu_torch.ops.cuda import stream_tile as ST
+
+    out = []
+    calls = capture_kernel_calls(lambda: out.append(run()))
+    sources = [fused_source(SA, ST, c) for c in calls["stream_tile"] if c[4] > 0]
+    return out[0], launches_of(DA, calls), sources
+
+
+def family_cpu_side(family: str, seed: int, n: int) -> dict:
+    """One family run's CPU side, in a worker process: the table from the
+    seed, the port's CPU run with the launches it predicts for the card,
+    and the oracle's answer over the CPU block's values
+    (``block_to_pytable``)."""
+    import torch
+
+    from tiflash_tpu_torch.runtime.executor import run_query
+    from tiflash_tpu_torch.testing.oracle import block_to_pytable
+
+    torch.set_num_threads(1)
+    D = load_draw()
+    t0 = time.perf_counter()
+    plan, cat = D.FAMILIES[family](seed, n)
+    cpu = cat.blocks("cpu")
+    (res, summary), predicted, sources = spied_cpu_run(lambda: run_query(plan, cpu))
+    t1 = time.perf_counter()
+    want = D.execute_plan_oracle(D.oracle_plan(plan), {"t": block_to_pytable(cpu["t"])})
+    return {"cpu": block_to_pytable(res), "retries": summary.retries,
+            "predicted": predicted, "sources": sources, "oracle": want,
+            "cpu_s": t1 - t0, "oracle_s": time.perf_counter() - t1}
+
+
+def _add(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def oracle_trees(card: str, D, SA, DA, ST) -> dict:
+    """Every tree of the reference fuzzer's plan, window and grouping-set
+    seeds and of the port fuzzer's seeds on ``cuda``: each run judged by
+    the oracle as the reference's fuzzer judges (``judge``), equal to the
+    port's CPU run (the float rule; a LIMIT by row count), launching
+    exactly what the CPU run's captured calls predict, every overflow flag
+    0; then each non-LIMIT tree over ``Mesh([cuda:0] * 8)``, equal to its
+    single-device card run and judged again."""
+    import torch
+
+    from tiflash_tpu_torch.mpp.mesh import Mesh
+    from tiflash_tpu_torch.runtime.executor import run_query
+    from tiflash_tpu_torch.testing.oracle import block_to_pytable, pytable_to_block
+
+    mesh = Mesh([torch.device("cuda:0")] * MESH_SHARDS)
+    gens = {g: {"trees": 0, "judged": 0, "norm": 0, "approx": 0, "count": 0, "mesh": 0}
+            for g in D.GENERATORS}
+    predicted, read, mesh_read = {}, {}, {}
+    errs = dict.fromkeys(KERNEL_NAMES, 0)
+    secs = {"oracle": 0.0, "cpu": 0.0, "card": 0.0, "mesh": 0.0}
+    mesh_retries = 0
+    for gen, seed, d in D.all_draws():
+        what = f"{gen} seed {seed} ({d.shape}):\n{d.plan.pretty()}"
+        t0 = time.perf_counter()
+        want = D.oracle_rows(d)
+        t1 = time.perf_counter()
+        cpu_blocks = {n: pytable_to_block(t, d.schemas[n], "cpu") for n, t in d.tables.items()}
+        (cpu_out, cpu_sum), pred, _ = spied_cpu_run(lambda: run_query(d.plan, cpu_blocks))
+        t2 = time.perf_counter()
+        gpu_blocks = {n: pytable_to_block(t, d.schemas[n], "cuda") for n, t in d.tables.items()}
+        ran = []
+        launches, e = held_kernel_run(what, SA, DA, ST,
+                                      lambda: ran.append(run_query(d.plan, gpu_blocks)))
+        out, summary = ran[0]
+        t3 = time.perf_counter()
+        if launches != pred:
+            raise AssertionError(f"{what}\nlaunches {launches}, the CPU run predicts {pred}")
+        if summary.device != "cuda:0" or summary.retries or cpu_sum.retries:
+            raise AssertionError(f"{what}\nran on {summary.device} with {summary.retries} "
+                                 f"retries (CPU: {cpu_sum.retries}): an overflow flag was set")
+        got, cpu_got = block_to_pytable(out), block_to_pytable(cpu_out)
+        if d.shape == "limit":
+            if D.n_rows(got) != D.n_rows(cpu_got):
+                raise AssertionError(f"{what}\n{D.n_rows(got)} rows on the card, "
+                                     f"{D.n_rows(cpu_got)} on the CPU")
+        else:
+            D.assert_same_rows(got, cpu_got, what)
+        how = D.judge(got, want, d.shape, what)
+        g = gens[gen]
+        g["trees"] += 1
+        g["judged"] += 1
+        g[how] += 1
+        _add(predicted, pred)
+        _add(read, launches)
+        errs = {k: max(errs[k], e[k]) for k in errs}
+        secs["oracle"] += t1 - t0
+        secs["cpu"] += t2 - t1
+        secs["card"] += t3 - t2
+        if d.shape == "limit":
+            continue
+        mesh_out = []
+        ml, me = held_kernel_run(what + " (mesh)", SA, DA, ST,
+                                 lambda: mesh_out.append(mesh_run(d.plan, gpu_blocks, mesh)))
+        mo, ms, _ = mesh_out[0]
+        if ms.device != "cuda:0":
+            raise AssertionError(f"{what}\nmesh result on {ms.device}")
+        mesh_got = block_to_pytable(mo)
+        D.assert_same_rows(mesh_got, got, what + "\nmesh vs single-device card run")
+        D.judge(mesh_got, want, d.shape, what + " (mesh)")
+        g["mesh"] += 1
+        mesh_retries += ms.retries
+        _add(mesh_read, ml)
+        errs = {k: max(errs[k], me[k]) for k in errs}
+        secs["mesh"] += time.perf_counter() - t3
+    torch.cuda.synchronize()
+    n_trees = sum(g["trees"] for g in gens.values())
+    n_mesh = sum(g["mesh"] for g in gens.values())
+    print(f"oracle trees on cuda: {n_trees} trees judged by the port's oracle and equal "
+          f"to the CPU run ({', '.join(f'{k} {v}' for k, v in gens.items())}); {n_mesh} "
+          f"over Mesh([cuda:0] * {MESH_SHARDS}) equal to the single-device run and judged "
+          f"({mesh_retries} mesh retries); launches predicted {predicted}, read {read}, "
+          f"under the mesh {mesh_read}; seconds {', '.join(f'{k} {v:.1f}' for k, v in secs.items())} "
+          f"[{card}]")
+    return {"generators": gens, "mesh_runs": n_mesh, "mesh_retries": mesh_retries,
+            "limit_by_count": sum(g["count"] for g in gens.values()),
+            "launches": {"predicted": predicted, "read": read, "mesh": mesh_read},
+            "max_abs_err": errs, "seconds": secs}
+
+
+def oracle_families(card: str, D, SA, DA, ST, pending: dict) -> dict:
+    """The two kernels' families on ``cuda``, each run: launches exactly
+    the CPU run's prediction (at least one of its kernel's), every
+    captured call kernel == plain, rows equal to the CPU run and judged by
+    the oracle (both computed by a worker, ``family_cpu_side``), and its
+    ``run_query`` median of ``WARM_RUNS``."""
+    from tiflash_tpu_torch.ops.cuda import build
+    from tiflash_tpu_torch.runtime.executor import run_query
+    from tiflash_tpu_torch.testing.oracle import block_to_pytable
+
+    t0 = time.perf_counter()
+    sides = {key: p.get() for key, p in pending.items()}
+    waited = time.perf_counter() - t0
+    # the fused shapes' sources, one nvcc each, all at once
+    t0 = time.perf_counter()
+    generated = list(dict.fromkeys(s for side in sides.values() for s in side["sources"]))
+    build.build_libraries((), generated=generated)
+    build_s = time.perf_counter() - t0
+    fams = {f: {"rows": D.FAMILY_ROWS, "runs": 0, "groups": [], "ms": [],
+                "launches": {}, "predicted": {}} for f in D.FAMILIES}
+    errs = dict.fromkeys(KERNEL_NAMES, 0)
+    for (fam, seed), side in sides.items():
+        what = f"family {fam} seed {seed}"
+        plan, cat = D.FAMILIES[fam](seed, D.FAMILY_ROWS)
+        gpu = cat.blocks("cuda")
+        ran = []
+        launches, e = held_kernel_run(what, SA, DA, ST,
+                                      lambda: ran.append(run_query(plan, gpu)))
+        out, summary = ran[0]
+        kernel = D.FAMILY_KERNEL[fam]
+        if launches != side["predicted"] or launches[kernel] < 1:
+            raise AssertionError(f"{what}: launches {launches}, the CPU run predicts "
+                                 f"{side['predicted']}; {kernel} must launch")
+        if summary.device != "cuda:0" or summary.retries or side["retries"]:
+            raise AssertionError(f"{what}: ran on {summary.device} with {summary.retries} "
+                                 f"retries (CPU: {side['retries']})")
+        got = block_to_pytable(out)
+        D.assert_same_rows(got, side["cpu"], what)
+        D.judge(got, side["oracle"], "agg", what)
+        f = fams[fam]
+        f["runs"] += 1
+        f["groups"].append(D.n_rows(got))
+        f["ms"].append(time_ms(lambda: run_query(plan, gpu), WARM_RUNS))
+        _add(f["launches"], launches)
+        _add(f["predicted"], side["predicted"])
+        errs = {k: max(errs[k], e[k]) for k in errs}
+        del gpu, cat
+    for fam, f in fams.items():
+        print(f"oracle family {fam} on cuda: {f['runs']} runs of {f['rows']} rows, groups "
+              f"{f['groups']}, launches {f['launches']} (predicted {f['predicted']}), every "
+              f"captured call kernel == plain, rows == CPU run and judged by the oracle; "
+              f"run_query medians of {WARM_RUNS} {[round(m, 4) for m in f['ms']]} ms [{card}]")
+    cpu_s = sum(s["cpu_s"] for s in sides.values())
+    oracle_s = sum(s["oracle_s"] for s in sides.values())
+    print(f"  workers: {ORACLE_WORKERS} processes, CPU runs {cpu_s:.1f} s and the oracle "
+          f"{oracle_s:.1f} s of their time; the phase waited {waited:.1f} s for them; "
+          f"{len(generated)} fused sources built in {build_s:.2f} s")
+    return {"families": fams, "max_abs_err": errs, "worker_cpu_s": cpu_s,
+            "worker_oracle_s": oracle_s, "waited_s": waited, "build_s": build_s}
+
+
+def oracle_phase(card: str, SA, DA, ST) -> dict:
+    """The port's judges on the card (``oracle_trees``, then
+    ``oracle_families``, whose CPU side and oracle answers a pool of
+    ``ORACLE_WORKERS`` spawned processes computes meanwhile).  Prints one
+    JSON line; a failed judgement raises."""
+    import multiprocessing
+
+    D = load_draw()
+    t0 = time.perf_counter()
+    pool = multiprocessing.get_context("spawn").Pool(ORACLE_WORKERS)
+    try:
+        pending = {(f, s): pool.apply_async(family_cpu_side, (f, s, D.FAMILY_ROWS))
+                   for f in D.FAMILIES for s in D.FAMILY_SEEDS}
+        trees = oracle_trees(card, D, SA, DA, ST)
+        fams = oracle_families(card, D, SA, DA, ST, pending)
+    finally:
+        pool.terminate()
+        pool.join()
+    seconds = time.perf_counter() - t0
+    launches = {k: {"predicted": trees["launches"]["predicted"].get(k, 0)
+                    + sum(f["predicted"].get(k, 0) for f in fams["families"].values()),
+                    "read": trees["launches"]["read"].get(k, 0)
+                    + sum(f["launches"].get(k, 0) for f in fams["families"].values()),
+                    "mesh": trees["launches"]["mesh"].get(k, 0)} for k in KERNEL_NAMES}
+    line = {"oracle_phase": {
+        "trees": trees["generators"], "mesh_runs": trees["mesh_runs"],
+        "limit_by_count": trees["limit_by_count"], "launches": launches,
+        "families": {f: {"rows": v["rows"], "runs": v["runs"], "groups": v["groups"],
+                         "run_query_ms": v["ms"], "launches": v["launches"]}
+                     for f, v in fams["families"].items()},
+        "seconds": seconds, "tree_seconds": trees["seconds"],
+        "worker_oracle_s": fams["worker_oracle_s"], "worker_cpu_s": fams["worker_cpu_s"],
+        "waited_s": fams["waited_s"], "card": card}}
+    print(json.dumps(line))
+    return {"launches": launches,
+            "max_abs_err": {k: max(trees["max_abs_err"][k], fams["max_abs_err"][k])
+                            for k in KERNEL_NAMES}}
 
 
 def main() -> int:
@@ -4601,6 +4888,11 @@ def _main(analytic_cpu, mesh_cpu) -> int:
     sql_launches = {k: {q: v[k] for q, v in sql["launches"].items()}
                     for k in ("stream_tile", "direct_agg", "stream_agg")}
 
+    # ---- 13. the judges: generated plans, both kernels' shapes and the mesh,
+    # held against the port's oracle
+    judged = oracle_phase(card, SA, DA, ST)
+    oracle_launches = {k: v["read"] for k, v in judged["launches"].items()}
+
     q1y = stream_y["q1"]
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "share_of_bound")
 
@@ -4614,7 +4906,8 @@ def _main(analytic_cpu, mesh_cpu) -> int:
 
     # the fuse cases, Q1, Q6 and Q1 at SF10, each kernel == plain
     tile_err = max(tile_err, tile_y["q1"]["max_abs_err"], tile_y["q6"]["max_abs_err"],
-                   sf10["max_abs_err"], sql["max_abs_err"]["stream_tile"])
+                   sf10["max_abs_err"], sql["max_abs_err"]["stream_tile"],
+                   judged["max_abs_err"]["stream_tile"])
     design = ("design_bound_ms", "share_of_design_bound")
     tile = dict(entry("stream_tile", "tiflash_tpu/ops/pallas/stream_agg.py:160",
                       main_path_launches, tile_err, tile_y["q1"]),
@@ -4623,6 +4916,7 @@ def _main(analytic_cpu, mesh_cpu) -> int:
                 loader_launches=loader["launches"],
                 mesh_launches=mesh["stream_tile_launches"],
                 sql_launches=sql_launches["stream_tile"],
+                oracle_launches=oracle_launches["stream_tile"],
                 service_launches={n: v["stream_tile"] for n, v in service["launches"].items()},
                 unfused_ms=tile_y["q1"]["unfused_ms"], build_seconds=generated_build_s,
                 **{k: tile_y["q1"][k] for k in design},
@@ -4636,17 +4930,21 @@ def _main(analytic_cpu, mesh_cpu) -> int:
         # the planes kernel: off the main path since the generated kernel
         # (0 launches there), timed at the planes evaluate makes on the card
         dict(entry("stream_agg", "tiflash_tpu/ops/pallas/stream_agg.py:160",
-                   planes_launches, max(max_err, sql["max_abs_err"]["stream_agg"]), q1y),
+                   planes_launches, max(max_err, sql["max_abs_err"]["stream_agg"],
+                                        judged["max_abs_err"]["stream_agg"]), q1y),
              on_main_path=False,
              sql_launches=sql_launches["stream_agg"],
+             oracle_launches=oracle_launches["stream_agg"],
              mesh_launches=mesh["stream_agg_launches"],
              q6={k: stream_y["q6"][k] for k in keys if k in stream_y["q6"]}),
         dict(entry("direct_agg", "tiflash_tpu/ops/pallas/direct_agg.py:116",
                    q7_launches, max(direct_err, mesh["direct_agg_max_abs_err"],
-                                    sql["max_abs_err"]["direct_agg"]), direct_y),
+                                    sql["max_abs_err"]["direct_agg"],
+                                    judged["max_abs_err"]["direct_agg"]), direct_y),
              analytics_launches=analytic_launches,
              mesh_launches=mesh["direct_agg_launches"],
              sql_launches=sql_launches["direct_agg"],
+             oracle_launches=oracle_launches["direct_agg"],
              # Q7-pairs over the mesh: its per-shard calls, each kernel == plain
              mesh_q7_pairs={k: mesh["q7_pairs"][k] for k in (
                  "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},

@@ -1,7 +1,9 @@
 """The PyTorch port must run where jax is not installed: importing every
-``tiflash_tpu_torch`` module and ``chip_smoke``'s helpers must pull in
-neither ``jax`` nor the JAX package ``tiflash_tpu``.  Checked in a fresh
-interpreter, since this test process has both loaded."""
+``tiflash_tpu_torch`` module and ``chip_smoke``'s helpers, and the draw
+helper ``tests/torch_plan_draw.py`` as ``chip_smoke.load_draw`` loads it,
+must pull in neither ``jax`` nor the JAX package ``tiflash_tpu``.
+Checked in a fresh interpreter, since this test process has both
+loaded."""
 
 import os
 import subprocess
@@ -42,7 +44,8 @@ for m in ("ops.join", "ops.merge", "ops.cuda.direct_agg", "plan.rewrite",
           "storage.native_loader", "storage.system", "mpp.service", "cli",
           "runtime.native", "testing.tbl", "mpp.mesh", "mpp.runner",
           "mpp.multihost", "exchange.shuffle", "plan.distribute", "demo",
-          "testing.reftest", "testing.oracle", "testing.declarative"):
+          "testing.reftest", "testing.oracle", "testing.declarative",
+          "testing.plan_oracle"):
     assert "tiflash_tpu_torch." + m in names, m
 for f in ("analytics_phase", "numpy_rollup", "numpy_window_report",
           "numpy_stats_grouped", "numpy_stats_first", "numpy_stats_stream",
@@ -60,6 +63,19 @@ for f in ("vector_phase", "loader_phase", "service_phase", "mesh_phase", "mesh_c
 for f in ("sql_phase", "sql_script_runs", "sql_scripts_check", "sql_query_phase",
           "held_kernel_run", "planes_equal_plain"):
     assert callable(getattr(chip_smoke, f)), f
+for f in ("oracle_phase", "oracle_trees", "oracle_families", "family_cpu_side",
+          "load_draw", "spied_cpu_run", "launches_of"):
+    assert callable(getattr(chip_smoke, f)), f
+draw = chip_smoke.load_draw()
+assert sum(len(seeds) for _, seeds in draw.GENERATORS.values()) == 126
+for f in ("all_draws", "oracle_rows", "judge", "assert_same_rows", "family_a",
+          "family_b", "execute_plan_oracle"):
+    assert callable(getattr(draw, f)), f
+from tiflash_tpu_torch.testing import oracle as O
+for f in ("o_filter", "o_project", "o_aggregate", "o_join", "o_sort", "o_window",
+          "o_expand", "o_cross_join", "o_anti_null_aware", "random_pytable",
+          "assert_tables_equal", "sort_pytable", "eval_expr_table"):
+    assert callable(getattr(O, f)), f
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "tiflash_tpu."))
              or m == "tiflash_tpu")
@@ -82,7 +98,8 @@ def test_port_and_chip_smoke_import_no_jax():
 def test_port_sources_name_no_jax():
     """No source line of the port imports jax or the JAX package."""
     offenders = []
-    for path in list((ROOT / "tiflash_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    for path in list((ROOT / "tiflash_tpu_torch").rglob("*.py")) + [
+            ROOT / "chip_smoke.py", ROOT / "tests" / "torch_plan_draw.py"]:
         for i, line in enumerate(path.read_text().splitlines(), 1):
             s = line.strip()
             if s.startswith(("import ", "from ")) and (

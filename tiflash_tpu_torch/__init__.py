@@ -10,6 +10,24 @@ The package imports torch and never jax.  There is no global device:
 every tensor is created on a device its caller names.
 """
 
+from .core.dtypes import (  # noqa: F401
+    DataType,
+    Decimal,
+    TypeKind,
+    BOOL,
+    DATE,
+    DATETIME,
+    FLOAT32,
+    FLOAT64,
+    INT8,
+    INT16,
+    INT32,
+    INT64,
+    STRING,
+    UINT8,
+    UINT32,
+    UINT64,
+)
 from .core.block import Block, Column, column_from_numpy  # noqa: F401
 
 __version__ = "0.1.0"
