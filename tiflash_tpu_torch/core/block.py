@@ -17,6 +17,7 @@ no device of its own.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -370,6 +371,22 @@ class Block:
         """Decode live rows to python lists (host copy; tests/output)."""
         sel = None if self.sel is None else self.sel.cpu().numpy()
         return {n: c.to_pylist(sel) for n, c in zip(self.names, self.columns)}
+
+    def pylists_bytes(self, rows: int) -> Dict[str, int]:
+        """What ``to_pylists`` reads, for a block with ``rows`` live rows:
+        ``host_bytes``, the selection mask and every column's data and
+        validity at the block's whole capacity (each is copied to host
+        memory whole before the dead rows are dropped), and
+        ``live_bytes``, the live rows' share of the data and validity."""
+        host = 0 if self.sel is None else self.sel.nbytes
+        row_bytes = 0
+        for c in self.columns:
+            host += c.data.nbytes
+            row_bytes += c.data.element_size() * math.prod(c.data.shape[1:])
+            if c.validity is not None:
+                host += c.validity.nbytes
+                row_bytes += c.validity.element_size() * math.prod(c.validity.shape[1:])
+        return {"host_bytes": host, "live_bytes": rows * row_bytes}
 
 
 __all__ = ["Column", "Block", "make_narrow32", "column_from_numpy", "signed_bits",

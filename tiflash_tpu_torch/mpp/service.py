@@ -45,6 +45,13 @@ card in launch order.  The cancel scope (thread-local) and the log
 context (a contextvar) follow each request's thread; the allocator's
 peak is process-wide, so a query's ``peak_device_bytes`` includes what
 concurrent queries held (``runtime/memory.py:QueryMemoryScope``).
+
+With tracing on (``runtime/tracing.py``) a ``POST /query`` is the span
+``service.request``, from the body's read to the reply's write, with the
+children ``service.decode`` (the body's and the plan's), ``service.admission``,
+the runner's spans, ``service.result`` (``to_pylists``; attributes
+``host_bytes``, what it copies from the device, and ``live_bytes``, the
+returned rows' share) and ``service.encode`` (the reply's JSON and write).
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ from urllib.parse import parse_qs, urlparse
 import torch
 
 from ..plan.serde import plan_from_json
+from ..runtime import tracing
 from ..runtime.cancel import CancelFlag, QueryCancelled, QueryTimeout, cancel_scope
 from ..runtime.errors import error_payload
 from ..runtime.executor import QueryRunner
@@ -131,11 +139,12 @@ class QueryService:
         give up after ``service_queue_timeout_s`` (0 = wait forever)."""
         timeout = self.settings.service_queue_timeout_s
         t0 = time.monotonic()
-        while not self._admission.acquire(timeout=0.05):
-            if flag.is_set():
-                raise QueryCancelled("cancelled while queued for admission")
-            if timeout and time.monotonic() - t0 > timeout:
-                raise QueryTimeout("queued past service_queue_timeout_s")
+        with tracing.span("service.admission"):
+            while not self._admission.acquire(timeout=0.05):
+                if flag.is_set():
+                    raise QueryCancelled("cancelled while queued for admission")
+                if timeout and time.monotonic() - t0 > timeout:
+                    raise QueryTimeout("queued past service_queue_timeout_s")
 
     def execute(self, plan_json: Dict, distributed: Optional[bool] = None,
                 qid: Optional[int] = None,
@@ -144,12 +153,13 @@ class QueryService:
         query runs over it unless ``distributed`` is False; with none on
         the service's device.  Unknown setting names raise ``ValueError``
         (a 400)."""
-        plan = plan_from_json(plan_json)
+        with tracing.span("service.decode"):
+            plan = plan_from_json(plan_json)
+            uses_system = "system_" in json.dumps(plan_json)
         mesh = self.mesh if (distributed is None or distributed) else None
         settings = self.settings
         if settings_override:
             settings = settings.with_overrides(settings_override)
-        uses_system = "system_" in json.dumps(plan_json)
         if qid is None:
             qid = self._register()
         with self._lock:
@@ -187,7 +197,10 @@ class QueryService:
             with self._lock:
                 self._queries[qid]["state"] = "FAILED"
             raise
-        cols = out.to_pylists()
+        with tracing.span("service.result") as sp:
+            cols = out.to_pylists()
+            if sp:
+                sp.set(**out.pylists_bytes(len(next(iter(cols.values()), ()))))
         with self._lock:
             self._queries[qid].update(
                 state="FINISHED", rows=summary.result_rows,
@@ -253,12 +266,13 @@ def make_http_server(service: QueryService, port: int = 0) -> ThreadingHTTPServe
             pass
 
         def _send(self, code: int, obj):
-            body = json.dumps(obj, default=str).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
+            with tracing.span("service.encode"):
+                body = json.dumps(obj, default=str).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
 
         def do_GET(self):
             url = urlparse(self.path)
@@ -288,14 +302,20 @@ def make_http_server(service: QueryService, port: int = 0) -> ThreadingHTTPServe
                 self._send(404, {"error": f"no route {self.path}"})
 
         def do_POST(self):
+            query = self.path == "/query"
+            with tracing.span("service.request") if query else tracing.NO_SPAN:
+                self._post(query)
+
+        def _post(self, query: bool):
             length = int(self.headers.get("Content-Length", 0))
             try:
-                req = json.loads(self.rfile.read(length) or b"{}")
+                with tracing.span("service.decode") if query else tracing.NO_SPAN:
+                    req = json.loads(self.rfile.read(length) or b"{}")
             except json.JSONDecodeError as e:
                 self._send(400, {"error": f"bad json: {e}"})
                 return
             try:
-                if self.path == "/query":
+                if query:
                     run = service.execute_async if req.get("async") else service.execute
                     self._send(200, run(req["plan"], req.get("distributed"),
                                         settings_override=req.get("settings")))

@@ -27,6 +27,8 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
+from ...runtime.metrics import METRICS
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -37,7 +39,8 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.Lock()
 # seconds each library took to build in this process (0.0 when it was
 # already on disk), by name (``stream_agg``) or, for a generated source,
-# ``<prefix>-<tag>``; read by chip_smoke.py
+# ``<prefix>-<tag>``; read by chip_smoke.py.  Each build also counts in
+# ``METRICS``' ``fragments_compiled_total`` and ``compile_seconds_total``
 BUILD_SECONDS: Dict[str, float] = {}
 # what nvcc printed while building (register and shared-memory use)
 BUILD_LOG: Dict[str, str] = {}
@@ -92,6 +95,8 @@ def _build(jobs_in: Sequence[Tuple[str, Path, str]]) -> None:
         for key, src, lib_path, tmp, proc, t0 in jobs:
             BUILD_LOG[key] = proc.communicate()[0]
             BUILD_SECONDS[key] = time.perf_counter() - t0
+            METRICS.counter("fragments_compiled_total").inc()
+            METRICS.counter("compile_seconds_total").inc(BUILD_SECONDS[key])
             if proc.returncode != 0:
                 failed.append(f"nvcc failed on {src} ({proc.returncode}):\n"
                               f"{BUILD_LOG[key]}")

@@ -17,7 +17,9 @@ and a Union concatenates its children's rows in order
 (``exchange/skew.py:concat_blocks``).  A WithCTE runs
 each definition once, before its child, and every CTERef of that name
 returns the same block.  Node ids are the reference's DFS pre-order ids,
-so overflow keys such as ``Join_5`` match.
+so overflow keys such as ``Join_5`` match.  Each node runs inside its
+span ``op.<NodeType>`` (``runtime/tracing.py:op_span``; nothing while
+tracing is off).
 
 The reference chooses the fused path by an environment knob; here it is
 the explicit ``fuse_stream_agg`` argument of ``compile_fragment``.
@@ -48,6 +50,7 @@ from ..ops.expand import expand_block
 from ..ops.join import cross_join, hash_join_with_tail
 from ..ops.sort import limit_block, sort_block, top_n
 from ..ops.window import window_block
+from ..runtime import tracing
 from ..runtime.errors import RTERR_PREFIX
 from . import nodes as P
 
@@ -100,8 +103,14 @@ def _drain_eval_errors(ev: ExprEvaluator, block: Block, diag: Diagnostics) -> No
 def _exec_node(node: P.PlanNode, tables: Dict[str, Block], diag: Diagnostics,
                ctr: List[int], fuse: bool) -> Block:
     ctr[0] += 1
-    nid = f"{type(node).__name__}_{ctr[0]}"
+    kind = type(node).__name__
+    nid = f"{kind}_{ctr[0]}"
+    with tracing.op_span(kind, nid, tables):
+        return _run_node(node, nid, tables, diag, ctr, fuse)
 
+
+def _run_node(node: P.PlanNode, nid: str, tables: Dict[str, Block], diag: Diagnostics,
+              ctr: List[int], fuse: bool) -> Block:
     def child_of(n):
         return _exec_node(n, tables, diag, ctr, fuse)
 

@@ -28,7 +28,13 @@ reference's does, in its order:
   ``break``), then failpoint ``exception_after_fragment_run``;
 - ``profile_dir``: the run traced by ``torch.profiler``, a Chrome trace
   written there; ``QueryMemoryScope``: the CUDA allocator's peak during
-  the run.
+  the run;
+- with tracing on (``runtime/tracing.py``), the spans ``runner.prepare``
+  (the rewrites and the aggregate defaults), ``runner.autosize``,
+  ``runner.checks`` (the pre-flight limits and the memory check), one
+  ``runner.attempt`` per attempt (the plan's run and ``read_flags``,
+  after which the op spans' device marks resolve) and ``runner.finish``
+  (the row counts and the result's limits).
 
 Every overflow flag and runtime-error flag of a run is read in one host
 read (``read_flags``).  An error flag never causes a retry: a run with an
@@ -73,6 +79,7 @@ from ..core.block import Block
 from ..ops.cuda import build
 from ..plan import nodes as P
 from ..plan.compiler import Diagnostics, execute_plan, flag_dict
+from . import tracing
 from .errors import LIMIT_EXCEEDED, EngineError, raise_runtime_errors, split_runtime_errors
 from .failpoint import fail_point
 from .metrics import METRICS
@@ -181,16 +188,17 @@ class QueryRunner:
         self.fuse_stream_agg = fuse_stream_agg
         self.mesh = mesh
         self.logical_plan = logical_plan
-        # a logical plan handed a mesh: distributed at the first run, from
-        # the tables' row counts
-        self._to_distribute = mesh is not None and not _has_exchange(plan)
-        if self._to_distribute:
-            self.logical_plan = plan
-        elif self.settings.enable_plan_rewrites and not _has_exchange(plan):
-            from ..plan.rewrite import eager_aggregation, prune_columns
+        with tracing.span("runner.prepare"):
+            # a logical plan handed a mesh: distributed at the first run,
+            # from the tables' row counts
+            self._to_distribute = mesh is not None and not _has_exchange(plan)
+            if self._to_distribute:
+                self.logical_plan = plan
+            elif self.settings.enable_plan_rewrites and not _has_exchange(plan):
+                from ..plan.rewrite import eager_aggregation, prune_columns
 
-            plan = prune_columns(eager_aggregation(plan))
-        self._apply_agg_defaults(plan)
+                plan = prune_columns(eager_aggregation(plan))
+            self._apply_agg_defaults(plan)
         self.plan = plan
         self._autosized = False
         self.cfg = cfg if cfg is not None else ExchangeConfig(
@@ -328,16 +336,21 @@ class QueryRunner:
             self._autosized = True
             from ..plan.auto import autosize_plan
 
+            with tracing.span("runner.autosize"):
+                try:
+                    autosize_plan(self.plan, tables, settings=self.settings)
+                except Exception:  # estimation must never sink a query
+                    pass
+        over_limit = None
+        with tracing.span("runner.checks"):
+            fail_point("exception_before_fragment_run")
+            self._check_preflight_limits(tables)
             try:
-                autosize_plan(self.plan, tables, settings=self.settings)
-            except Exception:  # estimation must never sink a query
-                pass
-        fail_point("exception_before_fragment_run")
-        self._check_preflight_limits(tables)
-        try:
-            self._check_memory(tables)
-        except MemoryLimitError as e:
-            return self._run_out_of_core(tables, e)
+                self._check_memory(tables)
+            except MemoryLimitError as e:
+                over_limit = e
+        if over_limit is not None:
+            return self._run_out_of_core(tables, over_limit)
         if self.settings.resource_group:
             from .resource import RESOURCE_GROUPS, to_ru
 
@@ -550,16 +563,18 @@ class QueryRunner:
         for attempt in range(retries + 1):
             sync_point("executor.attempt")
             checkpoint()  # between retry attempts
-            if self.mesh is None:
-                diag = Diagnostics({}, {}, rf_in_set_max=self.settings.rf_in_set_max_build)
-                out = execute_plan(self.plan, tables, diag, self.fuse_stream_agg)
-                flags = flag_dict(diag)
-            else:
-                from ..mpp.runner import compile_distributed
+            with tracing.span("runner.attempt", attempt=attempt):
+                if self.mesh is None:
+                    diag = Diagnostics({}, {}, rf_in_set_max=self.settings.rf_in_set_max_build)
+                    out = execute_plan(self.plan, tables, diag, self.fuse_stream_agg)
+                    flags = flag_dict(diag)
+                else:
+                    from ..mpp.runner import compile_distributed
 
-                diag = Diagnostics({}, {})
-                out, flags = compile_distributed(self.plan, self.mesh, self.cfg)(tables)
-            overflows, errors = split_runtime_errors(read_flags(flags))
+                    diag = Diagnostics({}, {})
+                    out, flags = compile_distributed(self.plan, self.mesh, self.cfg)(tables)
+                overflows, errors = split_runtime_errors(read_flags(flags))
+                tracing.resolve_device()
             checkpoint()
             flagged = {k: v for k, v in overflows.items() if v > 0}
             if not flagged:
@@ -577,35 +592,36 @@ class QueryRunner:
                     f"capacity overflow persisted after {retries} retries: {flagged}")
             _grow(self.plan, flagged, self.cfg)
         summary.wall_seconds = time.perf_counter() - t_start
-        summary.compile_seconds = _built_seconds(built_before)
-        summary.node_rows = {k: int(v) for k, v in diag.rows.items()}
-        log.info("query done: wall=%.3fs retries=%d", summary.wall_seconds,
-                 summary.retries)
-        METRICS.counter("query_seconds_total").inc(summary.wall_seconds)
-        if self.mesh is None:
-            result = out
-        else:
-            from ..mpp.runner import collect_result
-
-            result = collect_result(out)
-        summary.result_rows = int(result.num_rows())
-        summary.device = str(result.device) if result.columns else ""
-        self._check_row_limits(summary)
-        s = self.settings
-        if s.max_result_rows and summary.result_rows > s.max_result_rows:
-            if s.result_overflow_mode == "break":
-                # the first max_result_rows live rows (OverflowMode::BREAK)
-                keep = torch.cumsum(result.sel_mask().to(torch.int64), 0) \
-                    <= s.max_result_rows
-                result = result.and_sel(keep)
-                summary.result_rows = s.max_result_rows
+        with tracing.span("runner.finish"):
+            summary.compile_seconds = _built_seconds(built_before)
+            summary.node_rows = {k: int(v) for k, v in diag.rows.items()}
+            log.info("query done: wall=%.3fs retries=%d", summary.wall_seconds,
+                     summary.retries)
+            METRICS.counter("query_seconds_total").inc(summary.wall_seconds)
+            if self.mesh is None:
+                result = out
             else:
-                raise EngineError(
-                    f"result has {summary.result_rows} rows > "
-                    f"max_result_rows={s.max_result_rows}", LIMIT_EXCEEDED)
-        METRICS.counter("rows_returned_total").inc(summary.result_rows)
-        fail_point("exception_after_fragment_run")
-        return result, summary
+                from ..mpp.runner import collect_result
+
+                result = collect_result(out)
+            summary.result_rows = int(result.num_rows())
+            summary.device = str(result.device) if result.columns else ""
+            self._check_row_limits(summary)
+            s = self.settings
+            if s.max_result_rows and summary.result_rows > s.max_result_rows:
+                if s.result_overflow_mode == "break":
+                    # the first max_result_rows live rows (OverflowMode::BREAK)
+                    keep = torch.cumsum(result.sel_mask().to(torch.int64), 0) \
+                        <= s.max_result_rows
+                    result = result.and_sel(keep)
+                    summary.result_rows = s.max_result_rows
+                else:
+                    raise EngineError(
+                        f"result has {summary.result_rows} rows > "
+                        f"max_result_rows={s.max_result_rows}", LIMIT_EXCEEDED)
+            METRICS.counter("rows_returned_total").inc(summary.result_rows)
+            fail_point("exception_after_fragment_run")
+            return result, summary
 
 
 def _has_exchange(plan: P.PlanNode) -> bool:

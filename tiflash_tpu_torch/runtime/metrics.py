@@ -58,6 +58,9 @@ METRICS = _Registry()
 #                    rows_returned_total, queries_cancelled_total,
 #                    errors_total_code_* (runtime/errors.py)
 #   compilation      fragments_compiled_total, compile_seconds_total
+#                    (ops/cuda/build.py: each library nvcc built, and
+#                    its seconds; a build after start-up is a kernel
+#                    built again inside the service's life)
 #   capacity/retry   capacity_retries_total, shuffle_overflows_total
 #   memory           device_bytes_in_use, device_peak_bytes
 #   spill (native)   spill_parts_total, spill_bytes_total,
@@ -82,7 +85,6 @@ for _n in (
     "shuffle_overflows_total",
     "fragments_compiled_total",
     "compile_seconds_total",
-    "rows_scanned_total",
     "rows_returned_total",
     "device_bytes_in_use",
     "device_peak_bytes",
