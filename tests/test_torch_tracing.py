@@ -256,9 +256,9 @@ def test_pylists_bytes_on_a_block_with_dead_rows():
     blk = Block(names=("a", "b", "w"), columns=(a, b, wide), sel=sel)
     rows = len(blk.to_pylists()["a"])
     assert rows == 3
-    # copied: the mask (10 B), a (80 B), b and its validity (40 + 10 B),
-    # the wide column's two limbs (160 B); a live row holds 8 + 4 + 1 + 16 B
-    assert blk.pylists_bytes(rows) == {"host_bytes": 300, "live_bytes": 87}
+    # a live row holds 8 + 4 + 1 + 16 B; the live rows are gathered on the
+    # device, so copied are the 3 rows (87 B) and the live count (8 B)
+    assert blk.pylists_bytes(rows) == {"host_bytes": 95, "live_bytes": 87}
     whole = Block(names=("a", "b"), columns=(a, b))
     assert whole.pylists_bytes(n) == {"host_bytes": 130, "live_bytes": 130}
 

@@ -368,25 +368,37 @@ class Block:
                                          device=self.sel.device) < count)
 
     def to_pylists(self) -> Dict[str, list]:
-        """Decode live rows to python lists (host copy; tests/output)."""
-        sel = None if self.sel is None else self.sel.cpu().numpy()
-        return {n: c.to_pylist(sel) for n, c in zip(self.names, self.columns)}
+        """Decode live rows to python lists (host copy; tests/output).
+        With a selection the live rows are first gathered, in order, on
+        the block's own device, so dead slots never cross to the host.
+        The gather is one ``index_select`` per tensor: ``take``'s indexing
+        costs several times its host time, which small results would pay."""
+        cols = self.columns
+        if self.sel is not None and cols:
+            idx = torch.nonzero(self.sel).squeeze(1)
+
+            def rows(t):
+                return as_dtype_bits(signed_bits(t).index_select(0, idx), t.dtype)
+
+            cols = tuple(c.with_data(rows(c.data),
+                                     None if c.validity is None else rows(c.validity))
+                         for c in cols)
+        return {n: c.to_pylist() for n, c in zip(self.names, cols)}
 
     def pylists_bytes(self, rows: int) -> Dict[str, int]:
-        """What ``to_pylists`` reads, for a block with ``rows`` live rows:
-        ``host_bytes``, the selection mask and every column's data and
-        validity at the block's whole capacity (each is copied to host
-        memory whole before the dead rows are dropped), and
-        ``live_bytes``, the live rows' share of the data and validity."""
-        host = 0 if self.sel is None else self.sel.nbytes
+        """What ``to_pylists`` copies from the device, for a block with
+        ``rows`` live rows: ``host_bytes``, the live rows' data and
+        validity plus, with a selection, the live count that
+        ``torch.nonzero`` reads to size the gather (counted as 8 bytes),
+        and ``live_bytes``, the live rows' data and validity alone."""
         row_bytes = 0
         for c in self.columns:
-            host += c.data.nbytes
             row_bytes += c.data.element_size() * math.prod(c.data.shape[1:])
             if c.validity is not None:
-                host += c.validity.nbytes
                 row_bytes += c.validity.element_size() * math.prod(c.validity.shape[1:])
-        return {"host_bytes": host, "live_bytes": rows * row_bytes}
+        live = rows * row_bytes
+        return {"host_bytes": live + (0 if self.sel is None else 8),
+                "live_bytes": live}
 
 
 __all__ = ["Column", "Block", "make_narrow32", "column_from_numpy", "signed_bits",
