@@ -3,8 +3,9 @@ their work does not take the server's interpreter lock.
 
     python portbench/client.py '<json settings>'
 
-Settings: ``port``, ``mix``, ``seed``, ``seconds``.  Each client is a
-thread that sends its next request when the last reply has been parsed.
+Settings: ``port``, ``mix``, ``seed``, ``seconds``, ``parent``.  Each
+client is a thread that sends its next request when the last reply has
+been parsed.
 A request is timed on this process's clock (``time.monotonic``, which
 the server's process shares) from just before it is sent to its parsed
 reply.  The window opens when every client is ready; a client sends no
@@ -14,12 +15,19 @@ at the close are waited for, and count.
 
 Prints ``{"t0": ...}`` when the window opens, then, at the end, one JSON
 line with every request's record and ``t1``, the last reply's time.
+
+It ends with the process that started it (``parent`` in the settings):
+the kernel kills it once that process is gone, however that ended, so
+a run that dies leaves no load generator behind.
 """
 
 from __future__ import annotations
 
+import ctypes
 import http.client
 import json
+import os
+import signal
 import sys
 import threading
 import time
@@ -81,7 +89,21 @@ def run_client(k: int, mix: Mix, cfg: dict, start: threading.Barrier, box: dict,
         i += 1
 
 
+PR_SET_PDEATHSIG = 1
+
+
+def die_with_parent(parent: int) -> None:
+    """Have the kernel kill this process when ``parent`` ends; exit now if
+    it has ended already (this process then has another parent)."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_PDEATHSIG, signal.SIGKILL, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_PDEATHSIG) failed")
+    if os.getppid() != parent:
+        sys.exit(1)
+
+
 def main(cfg: dict) -> None:
+    die_with_parent(cfg["parent"])
     mix = Mix(cfg["mix"], cfg["seed"])
     n = mix.clients
     box: dict = {}

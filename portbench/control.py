@@ -5,9 +5,10 @@ state), judged by ``check.py`` against the exact reference.
 
     python3 portbench/control.py --workload <cell> --seeds 1,2,3 [--requests N]
 
-For each seed it makes the cell's tables, takes the first ``N`` requests
-of each of the mix's clients (the order a run sends them in), answers
-each with the control and counts the answers ``check.compare`` rejects.
+For each seed it makes the cell's tables with its configuration's
+generator (``dataset.py``), takes the first ``N`` requests of each of
+the mix's clients (the order a run sends them in), answers each with the
+control and counts the answers ``check.compare`` rejects.
 Prints one JSON line per seed, then one with the least count: the upper
 reading of ``wrong_answers``, whose limit is 0.  ``--rehearse SF`` runs
 on the CPU at that scale factor.
@@ -24,17 +25,18 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from portbench import check, datagen, traffic  # noqa: E402
+from portbench import check, dataset, traffic  # noqa: E402
 from portbench.reference._common import Tables  # noqa: E402
 from portbench.run import load_cell  # noqa: E402
 
 
 def control_counts(cell_name: str, seed: int, n_requests: int, sf: float, device: str) -> dict:
-    cell, _, _, _ = load_cell(cell_name)
+    cell, conf, _, _ = load_cell(cell_name)
+    gen = dataset.generator(conf)
     mix = traffic.Mix(cell["traffic"], seed)
     refs = {s: importlib.import_module(f"portbench.reference.{s}") for s in mix.queries}
     t0 = time.monotonic()
-    tables = Tables(datagen.generate(sf, seed, device), device)
+    tables = Tables(gen.generate(sf, seed, device), device)
     exact, lower, wrong, total = {}, {}, 0, 0
     by_shape = {}
     for k in range(mix.clients):
@@ -64,6 +66,14 @@ def main(argv=None) -> int:
                     help="requests per client: a pass of a stream, or draws")
     ap.add_argument("--rehearse", type=float, default=None)
     args = ap.parse_args(argv)
+    try:
+        return _main(args)
+    except dataset.RunError as e:
+        print(f"control.py: {e}", file=sys.stderr)
+        return 2
+
+
+def _main(args) -> int:
     import torch
 
     _, conf, _, _ = load_cell(args.workload)

@@ -87,7 +87,9 @@ TABLE_ORDER = ("region", "nation", "supplier", "customer", "part", "partsupp",
 @dataclasses.dataclass
 class Col:
     """One column: ``kind`` is ``INT64``, ``DECIMAL`` (scale 2, precision
-    15), ``DATE`` or ``STRING`` (``data`` holds codes into ``dictionary``)."""
+    15), ``DATE`` or ``STRING`` (``data`` holds codes into ``dictionary``)
+    here; another configuration's generator may give any kind that
+    ``system.py`` maps to the port's types, such as ``DECIMAL(12,4)``."""
     data: np.ndarray
     kind: str
     dictionary: Optional[Tuple[str, ...]] = None

@@ -1,9 +1,11 @@
 """The bytes a result's decode copies from the device over the bytes of
 the rows it returns, over the requests completed in the profiled slice:
-the sums of ``service.result``'s ``host_bytes`` (the selection mask and
-every column at the block's whole capacity) and ``live_bytes`` (rows
-returned times each column's bytes a row).  1.0 means nothing was copied
-that was then dropped."""
+the sums of ``service.result``'s ``host_bytes`` (what crosses to the
+host: the live rows' data and validity, gathered on the card, and with a
+selection the 8-byte count of them) and ``live_bytes`` (the live rows'
+data and validity alone).  1.0 means nothing was copied that was then
+dropped; a decode that copied whole blocks would read their capacity
+over their live rows."""
 
 from portbench import spans
 

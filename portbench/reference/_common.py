@@ -31,27 +31,34 @@ def half_up_div(num: int, den: int) -> int:
 
 
 class Tables:
-    """The benchmark's arrays (``datagen.generate``), one flat namespace of
-    column names (TPC-H's are unique across tables), copied to ``device``
-    on first use."""
+    """The benchmark's arrays (a configuration's generated tables), copied
+    to ``device`` on first use.  A column is named ``<table>.<column>``,
+    and by its bare name where no other table has a column of that name
+    (as every TPC-H column)."""
 
     def __init__(self, tables: Dict, device):
         self.device = torch.device(device)
-        self._host = {}
+        self.host: Dict[str, np.ndarray] = {}
         self._dicts = {}
-        for t in tables.values():
+        names = [name for t in tables.values() for name in t.columns]
+        self._shared = {name for name in names if names.count(name) > 1}
+        for tname, t in tables.items():
             for name, col in t.columns.items():
-                self._host[name] = col.data
-                if col.dictionary is not None:
-                    self._dicts[name] = col.dictionary
+                for key in [f"{tname}.{name}"] + ([] if name in self._shared else [name]):
+                    self.host[key] = col.data
+                    if col.dictionary is not None:
+                        self._dicts[key] = col.dictionary
         self._dev: Dict[str, torch.Tensor] = {}
         self._years = None
 
     def __getitem__(self, name: str) -> torch.Tensor:
         t = self._dev.get(name)
         if t is None:
+            if name in self._shared:
+                raise KeyError(f"{name!r} is a column of more than one table: "
+                               f"name it as <table>.{name}")
             t = self._dev[name] = torch.from_numpy(
-                np.ascontiguousarray(self._host[name])).to(self.device).long()
+                np.ascontiguousarray(self.host[name])).to(self.device).long()
         return t
 
     def dict(self, name: str) -> Tuple[str, ...]:

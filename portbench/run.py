@@ -6,13 +6,14 @@ Everything is found by name: the cell in ``BENCHMARK.json``, its
 configuration in ``configs/<config>.json``, its mix in
 ``mixes/<traffic>.json`` (``traffic.py``), each query shape in
 ``queries/<shape>.json`` with its reference ``reference/<shape>.py``,
-and each metric's reader in ``metrics/<metric>.py``.
+each metric's reader in ``metrics/<metric>.py``, and the configuration's
+data generator, ``portbench/<generator>.py`` (``dataset.py``).
 
 Set-up, timed from the start of this process: the tables made from the
-seed (``datagen.py``), the port's catalog built from them, its query
-service started on the card (``system.py``) and every request of the
-mix's warm set sent once through HTTP, which copies the tables to the
-card and builds every kernel the mix needs.  The window: the load
+seed by the configuration's generator, the port's catalog built from
+them, its query service started on the card (``system.py``) and every
+request of the mix's warm set sent once through HTTP, which copies the
+tables to the card and builds every kernel the mix needs.  The window: the load
 generator (``client.py``) in a process of its own, for ``--seconds``.
 With ``--trace 1`` the same window runs with the profiler over the mix's
 slice, and the per-layer metrics are reported instead of the end-to-end
@@ -38,6 +39,8 @@ import faulthandler  # noqa: E402
 import gc  # noqa: E402
 import importlib  # noqa: E402
 import json  # noqa: E402
+import os  # noqa: E402
+import signal  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import urllib.error  # noqa: E402
@@ -49,11 +52,9 @@ ROOT = HERE.parent
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
+from portbench.dataset import RunError, config  # noqa: E402
+
 FORBIDDEN = ("jax", "jaxlib", "flax", "tiflash_tpu")
-
-
-class RunError(Exception):
-    """A run that cannot give a result."""
 
 
 def forbidden_modules():
@@ -66,8 +67,7 @@ def load_cell(name: str):
     if name not in cells:
         raise RunError(f"no workload {name!r} in BENCHMARK.json")
     cell = cells[name]
-    config = next(c for c in bench["configs"] if c["name"] == cell["config"])
-    conf = json.loads((ROOT / config["file"]).read_text())
+    conf = config(cell["config"])
 
     def applies(m):
         return "workloads" not in m or name in m["workloads"]
@@ -110,7 +110,8 @@ def run_window(port: int, mix_name: str, seed: int, seconds: float, sl, slice_sp
     a ``trace.Slice``; returns (t0, t1, records)."""
     from portbench import trace
 
-    cfg = {"port": port, "mix": mix_name, "seed": seed, "seconds": seconds}
+    cfg = {"port": port, "mix": mix_name, "seed": seed, "seconds": seconds,
+           "parent": os.getpid()}
     proc = subprocess.Popen([sys.executable, str(HERE / "client.py"), json.dumps(cfg)],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
@@ -168,11 +169,36 @@ def main(argv=None) -> int:
     def log(msg):
         print(msg, file=sys.stderr, flush=True)
 
+    if args.trace:
+        from portbench.trace import CUPTI_ENV
+
+        os.environ.update(CUPTI_ENV)
     try:
         return _main(args, log)
     except RunError as e:
         log(f"portbench: {e}")
         return 2
+    except Terminated as e:
+        # the clean-up on the way here ended the load generator and waited
+        # for it; the service's threads may still be inside a request,
+        # so the interpreter is not wound down around them
+        log(f"portbench: ended by signal {e.signum}; no result")
+        sys.stdout.flush()
+        os._exit(128 + e.signum)
+
+
+class Terminated(BaseException):
+    """SIGTERM, raised in the main thread so that every clean-up on the way
+    out runs (a crash or SIGKILL ends the load generator through
+    ``client.py``'s ``die_with_parent`` instead)."""
+
+    def __init__(self, signum):
+        super().__init__(signum)
+        self.signum = signum
+
+
+def _terminated(signum, frame):
+    raise Terminated(signum)
 
 
 def _main(args, log) -> int:
@@ -191,16 +217,17 @@ def _main(args, log) -> int:
         from portbench import system
     except ImportError as e:
         raise RunError(f"the system under test is not importable: {e}")
-    from portbench import bytes_model, datagen, traffic
+    from portbench import bytes_model, dataset, traffic
     from portbench.reference._common import Tables
 
+    gen = dataset.generator(conf)
     mix = traffic.Mix(cell["traffic"], seed)
     refs = {s: importlib.import_module(f"portbench.reference.{s}") for s in mix.queries}
     metric_mods = {m["name"]: importlib.import_module(f"portbench.metrics.{m['name']}")
                    for m in (per_layer if args.trace else e2e)}
 
     t = time.monotonic()
-    tables = datagen.generate(sf, seed, device)
+    tables = gen.generate(sf, seed, device)
     if device == "cuda":
         torch.cuda.empty_cache()
     gen_s = time.monotonic() - t
@@ -222,7 +249,7 @@ def _main(args, log) -> int:
     peak_setup = torch.cuda.max_memory_allocated() if device == "cuda" else 0
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    log(f"set-up: tables {datagen.total_bytes(tables)} B made in {gen_s:.3f} s, "
+    log(f"set-up: tables {gen.total_bytes(tables)} B made in {gen_s:.3f} s, "
         f"catalog {cat_s:.3f} s, {len(warm)} warm requests {warm_s:.3f} s "
         f"(copy to the device and kernel builds), counters {before}")
 
@@ -258,7 +285,8 @@ def _main(args, log) -> int:
         log(f"trace: slice {run.trace['window_s']:.3f} s, kernels {run.trace['busy_s']:.6f} s, "
             f"copies {run.trace['copy_s']:.6f} s ({run.trace['kernel_events']} kernels, "
             f"{run.trace['copy_events']} copies and sets), "
-            f"{len(run.trace['requests_done'])} requests done in it, "
+            f"{len(run.trace['requests_done'])} requests done in it, clock offset "
+            f"{run.trace['offset_ns']} ns within {run.trace['offset_err_ns']} ns, "
             f"reduced in {time.monotonic() - t:.3f} s")
         del sl
     bad = forbidden_modules()
@@ -272,8 +300,7 @@ def _main(args, log) -> int:
         torch.cuda.empty_cache()
     run.tables = Tables(tables, device)
     run.references = refs
-    run.scan_bytes = bytes_model.ScanBytes(
-        {c: col.data for tb in tables.values() for c, col in tb.columns.items()})
+    run.scan_bytes = bytes_model.ScanBytes(run.tables.host)
     wrong = judge(run, log)
     failed = len(run.records) - len(run.answered)
     for r in [r for r in run.records if r["status"] != 200][:5]:
@@ -316,4 +343,5 @@ def _main(args, log) -> int:
 
 if __name__ == "__main__":
     faulthandler.enable()   # a crash leaves its Python stack on standard error
+    signal.signal(signal.SIGTERM, _terminated)
     sys.exit(main())

@@ -9,6 +9,7 @@ generator does) and serves them with ``mpp/service.py``'s
 
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 from tiflash_tpu_torch.core import dtypes as dt
@@ -17,12 +18,23 @@ from tiflash_tpu_torch.storage.catalog import Catalog, column_from_arrays
 
 
 def _dtype(kind: str):
-    return {"INT64": dt.INT64, "DECIMAL": dt.Decimal(15, 2), "DATE": dt.DATE,
-            "STRING": dt.STRING}[kind]
+    """A generated column's kind as the port's type: ``DECIMAL(p,s)``;
+    ``DECIMAL``, which is TPC-H's ``DECIMAL(15,2)``; or the name of one of
+    the port's types (``INT64``, ``DATE``, ``STRING``, ...)."""
+    m = re.fullmatch(r"DECIMAL\((\d+),\s*(\d+)\)", kind)
+    if m:
+        return dt.Decimal(int(m[1]), int(m[2]))
+    if kind == "DECIMAL":
+        return dt.Decimal(15, 2)
+    t = getattr(dt, kind, None)
+    if not isinstance(t, dt.DataType):
+        raise ValueError(f"no type of the port is named {kind!r}")
+    return t
 
 
 def build_catalog(tables: Dict) -> Catalog:
-    """The port's catalog over ``datagen.generate``'s tables."""
+    """The port's catalog over a configuration's generated tables
+    (``dataset.py``)."""
     cat = Catalog()
     for name, t in tables.items():
         cols = {c: column_from_arrays(col.data, _dtype(col.kind), dictionary=col.dictionary)

@@ -32,10 +32,17 @@ def test_none_and_big_ints():
 
 
 def test_device_time_inside_intervals():
-    from portbench.trace import _covered
+    """Kernel time is read by launch: a kernel counts for the interval in
+    which its launch lies, whenever it ran."""
+    from torch.autograd import DeviceType
 
-    busy = [(0, 10), (20, 30), (40, 50)]
-    assert _covered(busy, 0, 50) == 30
-    assert _covered(busy, 5, 25) == 10
-    assert _covered(busy, 12, 18) == 0
-    assert _covered(busy, 45, 100) == 5
+    from portbench import trace
+    from portbench.tests.test_trace import Event, launched, reduced
+
+    ev = [Event(trace.SLICE_RANGE, 0, 100, DeviceType.CPU), *launched("a", 1, 0, 10, 1),
+          *launched("b", 15, 20, 30, 2), *launched("c", 19, 40, 50, 3)]
+    r = reduced(ev)
+    assert round(trace.kernel_s(r, 0, 50) * 1e9) == 30
+    assert round(trace.kernel_s(r, 5, 18) * 1e9) == 10
+    assert trace.kernel_s(r, 20, 50) == 0
+    assert round(trace.kernel_s(r, 19, 99) * 1e9) == 10

@@ -1,13 +1,19 @@
 """The span metrics' readers on a synthetic run: requests matched to the
-load generator's records, the means per request, the copy ratio, and
-nothing read where the program records no span."""
+load generator's records, the means per request, the copy ratio, the
+scans' own kernel time, and nothing read where the program records no
+span."""
 
 from types import SimpleNamespace
 
 import pytest
 
-from portbench import spans
-from portbench.metrics import plan_device_ms, prepare_ms, result_copy_ratio, result_ms
+from torch.autograd import DeviceType
+
+from portbench import spans, trace
+from portbench.bytes_model import HBM_BYTES_PER_S
+from portbench.metrics import (plan_device_ms, prepare_ms, result_copy_ratio, result_ms,
+                               scan_roofline)
+from portbench.tests.test_trace import Event, launched, reduced
 
 MS = 1_000_000
 
@@ -86,3 +92,56 @@ def test_nothing_to_read():
     for mod in (prepare_ms, result_ms, result_copy_ratio, plan_device_ms):
         assert mod.read(empty) is None
         assert mod.read(SimpleNamespace(trace=None)) is None
+
+
+def _scan_run(extra_records=()):
+    """A slice of 100 ms (the profiler's clock is the monotonic clock
+    here) holding a Q1 request sent at 20.2 ms and answered at 30 ms,
+    between a Q15 answered at 20 ms and a Q3 sent at 30.1 ms.  Kernels, in
+    ms, launched / run, where the device's times lie off the host's:
+    Q15's last, 19 / 22.6 to 23.4, inside Q1's attempt; Q1's auto-sizing,
+    20.9 / 20.95 to 21; Q1's attempt, 22.4 / 24 to 25 and 23.9 / 26.2 to
+    26.7, the second past the attempt's end; Q1's result gather, 26.8 /
+    26.85 to 27; Q3's first, 30.5 / 29.8 to 30.4.  Q1 must read 0.75 ms of
+    bytes at 3.35 TB/s."""
+    ev = [Event(trace.SLICE_RANGE, 0, 100 * MS, DeviceType.CPU)]
+    for k, (t, a, b) in enumerate(((19, 22.6, 23.4), (20.9, 20.95, 21), (22.4, 24, 25),
+                                   (23.9, 26.2, 26.7), (26.8, 26.85, 27), (30.5, 29.8, 30.4))):
+        ev += launched("kernel", int(t * MS), int(a * MS), int(b * MS), k + 1)
+    records = [dict(_rec(10.0, 20.0), shape="q15", key="q15"),
+               dict(_rec(20.2, 30.0), shape="q1", key="q1", params={}),
+               dict(_rec(30.1, 40.0), shape="q3", key="q3")] + list(extra_records)
+    recorded = [_span(1, "service.request", None, 7, 20.3, 29.9),
+                _span(2, "runner.autosize", 1, 7, 20.5, 21.5),
+                _span(3, "runner.attempt", 1, 7, 22.0, 26.0, attempt=0),
+                _span(4, "service.result", 1, 7, 26.5, 27.5)]
+    run = _run(records, recorded)
+    run.trace = reduced(ev, records)
+    run.references = {"q1": SimpleNamespace(SCAN={}), "q15": SimpleNamespace(),
+                      "q3": SimpleNamespace()}
+    run.scan_bytes = SimpleNamespace(bytes=lambda key, ref, t, params: 0.75e-3 * HBM_BYTES_PER_S)
+    run.tables = None
+    return run
+
+
+def test_scan_roofline_counts_the_scan_requests_own_kernels():
+    """Only the 1.5 ms of kernels that Q1's attempt launched count, 0.75 /
+    1.5, wherever the device ran them.  Its client interval launched 1.7
+    ms (auto-sizing and gather too); the kernels that ran inside the
+    interval, the neighbours' among them, add up to 2.75 ms."""
+    run = _scan_run()
+    assert scan_roofline.read(run) == pytest.approx(50.0)
+    q1 = run.span_requests[0].record
+    interval = trace.kernel_s(run.trace, int(q1["t_send"] * 1e9), int(q1["t_done"] * 1e9))
+    assert interval == pytest.approx(1.7e-3)
+
+
+def test_scan_roofline_reads_nothing_without_its_own_time():
+    # a second client's request overlapping Q1's
+    assert scan_roofline.read(_scan_run([dict(_rec(25.0, 35.0), shape="q3", key="q3")])) \
+        is None
+    run = _scan_run()
+    run.span_requests[0].children = [s for s in run.span_requests[0].children
+                                     if s["name"] != "runner.attempt"]
+    assert scan_roofline.read(run) is None
+    assert scan_roofline.read(SimpleNamespace(trace=None)) is None

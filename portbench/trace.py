@@ -2,16 +2,25 @@
 metrics read.
 
 ``Slice`` runs ``torch.profiler`` (CPU and CUDA activity) over a steady
-part of the window.  The device's activity is traced whichever thread
-launched it; host operations only on the thread that runs the profiler
-(the profiler's every-thread mode aborted the process on the card under
-the two-client mix, whose server threads come and go by the hundred).  A
+part of the window.  The device's activity, and the CUDA calls that
+launched it, are traced whichever thread made them; other host
+operations only on the thread that runs the profiler (the profiler's
+every-thread mode aborted the process on the card under the two-client
+mix, whose server threads come and go by the hundred).  A
 profiler range named ``portbench.slice`` marks the slice in the
-profiler's clock; the monotonic clock read at its start maps the load
-generator's timestamps onto it.  The reduction keeps:
+profiler's clock.  Clock marks just after it (``portbench.clock.<i>``,
+short ranges, each with the monotonic clock read just before and just
+after it begins) map the load generator's timestamps and the program's
+spans onto that clock: the mark whose two readings lie closest together
+gives the offset, since a thread switch between them widens the bracket.
+The reduction keeps:
 
 - ``busy_s``: the union of the kernels' activity inside the slice, and
   ``window_s``, the slice's length;
+- ``launched``: each kernel with the host time of the call that launched
+  it (the profiler links the two by a correlation id), with the clock
+  offset and its error bound, so that ``kernel_s`` reads the device time
+  of the kernels that any span of the program launched;
 - ``copy_s``: the union of the copies and sets (``Memcpy ...``,
   ``Memset ...``) inside the slice, apart from the kernels: a copy to or
   from pageable host memory spans the driver's staging on the host while
@@ -29,9 +38,17 @@ import bisect
 import time
 from typing import Dict, List, Optional, Tuple
 
+# CUPTI set up once per process and kept between the profiler's sessions
+# (torch's own setting where a re-initialisation after a teardown
+# crashes): the slice's start then sets nothing up again; ``run.py``
+# puts these into a traced run's environment before it imports torch
+CUPTI_ENV = {"TEARDOWN_CUPTI": "0", "DISABLE_CUPTI_LAZY_REINIT": "1"}
 SLICE_RANGE = "portbench.slice"
+CLOCK_MARK = "portbench.clock."
+CLOCK_MARKS = 16
 NAME_CHARS = 120   # a kernel's name is cut to this, to keep the result line short
 COPY_PREFIXES = ("Memcpy", "Memset")
+LAUNCH_PREFIX = "cu"   # the runtime's and the driver's calls: cudaLaunchKernel, cuLaunchKernel
 
 
 class Slice:
@@ -50,12 +67,19 @@ class Slice:
         warm.stop()
         self.prof = torch.profiler.profile(activities=self._acts)
         self._range = torch.profiler.record_function(SLICE_RANGE)
+        self._record = torch.profiler.record_function
         self.mono_start = None
+        self.marks: List[Tuple[int, int]] = []
 
     def start(self) -> None:
         self.prof.start()
         self.mono_start = time.monotonic()
         self._range.__enter__()
+        for i in range(CLOCK_MARKS):
+            a = time.monotonic_ns()
+            with self._record(f"{CLOCK_MARK}{i}"):
+                b = time.monotonic_ns()
+            self.marks.append((a, b))
 
     def stop(self) -> None:
         self._range.__exit__(None, None, None)
@@ -74,15 +98,19 @@ def _union(intervals: List[Tuple[int, int]]) -> List[Tuple[int, int]]:
     return out
 
 
-def _covered(busy: List[Tuple[int, int]], a: int, b: int) -> int:
-    """Nanoseconds of the union ``busy`` inside [a, b]."""
-    i = bisect.bisect_left(busy, (a, a))
-    i = max(0, i - 1)
-    total = 0
-    while i < len(busy) and busy[i][0] < b:
-        total += max(0, min(busy[i][1], b) - max(busy[i][0], a))
-        i += 1
-    return total
+def clock_offset(sl: Slice, events, lo: int) -> Tuple[int, Optional[int]]:
+    """The profiler's clock less the monotonic clock (ns), and its error
+    bound: half the narrowest clock mark's bracket.  Without marks, the
+    slice's range start less the monotonic clock read before it began,
+    with no bound: a thread switch between the two shifts it."""
+    stamps = {e.name(): e.start_ns() for e in events if e.name().startswith(CLOCK_MARK)}
+    brackets = [(b - a, stamps[f"{CLOCK_MARK}{i}"] - (a + b) // 2)
+                for i, (a, b) in enumerate(getattr(sl, "marks", []))
+                if f"{CLOCK_MARK}{i}" in stamps]
+    if not brackets:
+        return lo - int(sl.mono_start * 1e9), None
+    width, offset = min(brackets)
+    return offset, width // 2
 
 
 def reduce(sl: Slice, records: List[Dict], top: int = 10) -> Dict:
@@ -93,15 +121,24 @@ def reduce(sl: Slice, records: List[Dict], top: int = 10) -> Dict:
     marks = [e for e in events if e.name() == SLICE_RANGE]
     lo = marks[0].start_ns() if marks else min(e.start_ns() for e in events)
     hi = marks[0].end_ns() if marks else max(e.end_ns() for e in events)
-    offset_ns = lo - int(sl.mono_start * 1e9)
+    offset_ns, offset_err_ns = clock_offset(sl, events, lo)
 
-    kernels, copies = [], []
+    launch_ns = {e.correlation_id(): e.start_ns() for e in events
+                 if e.device_type() == DeviceType.CPU and e.correlation_id()
+                 and e.name().startswith(LAUNCH_PREFIX)}
+    kernels, copies, launched = [], [], []
     by_name: Dict[str, int] = {}
     for e in events:
         a, b = max(e.start_ns(), lo), min(e.end_ns(), hi)
         if b > a and e.device_type() == DeviceType.CUDA:
-            (copies if e.name().startswith(COPY_PREFIXES) else kernels).append((a, b))
+            if e.name().startswith(COPY_PREFIXES):
+                copies.append((a, b))
+            else:
+                kernels.append((a, b))
+                if e.correlation_id() in launch_ns:
+                    launched.append((launch_ns[e.correlation_id()], a, b))
             by_name[e.name()] = by_name.get(e.name(), 0) + (b - a)
+    launched.sort()
     busy = _union(kernels)
     busy_ns = sum(b - a for a, b in busy)
 
@@ -109,11 +146,9 @@ def reduce(sl: Slice, records: List[Dict], top: int = 10) -> Dict:
     reqs = [(int(r["t_send"] * 1e9) + offset_ns, int(r["t_done"] * 1e9) + offset_ns, r)
             for r in records]
     done_in = [r for s, d, r in reqs if lo <= d <= hi]
-    # device time inside each request's own interval: that request's
-    # alone where no two requests of the slice overlap (one client)
+    # with more than one client a request's spans may hold another's kernels
     inside = sorted((max(s, lo), d) for s, d, r in reqs if lo <= d <= hi)
     overlap = any(b[0] < a[1] for a, b in zip(inside, inside[1:]))
-    own_busy = [(r, _covered(busy, max(s, lo), d) / 1e9) for s, d, r in reqs if lo <= d <= hi]
 
     gaps = []
     edges = [lo] + [x for ab in busy for x in ab] + [hi]
@@ -135,10 +170,31 @@ def reduce(sl: Slice, records: List[Dict], top: int = 10) -> Dict:
         "kernel_events": len(kernels),
         "copy_events": len(copies),
         "requests_done": done_in,
-        "own_busy": None if overlap else own_busy,
+        "overlap": overlap,
+        "launched": launched,
+        "lo_ns": lo,
+        "hi_ns": hi,
+        "offset_ns": offset_ns,
+        "offset_err_ns": offset_err_ns,
         "device_ops": [[n[:NAME_CHARS], ns / 1e9] for n, ns in ops_sorted[:top]],
         "idle_gaps": idle,
     }
+
+
+def kernel_s(tr: Dict, start_ns: int, end_ns: int) -> Optional[float]:
+    """Seconds of device time (the union of their activity) of the kernels
+    launched inside [start_ns, end_ns] on the monotonic clock (the load
+    generator's and the program's spans'), or None where that interval is
+    not wholly inside the slice.  By launch, not by when a kernel ran: the
+    trace's device times can lie milliseconds off its host times, and a
+    kernel queued behind others runs after its launcher has moved on."""
+    a, b = start_ns + tr["offset_ns"], end_ns + tr["offset_ns"]
+    if a < tr["lo_ns"] or b > tr["hi_ns"]:
+        return None
+    ks = tr["launched"]
+    i = bisect.bisect_left(ks, (a,))
+    j = bisect.bisect_right(ks, (b, float("inf")))
+    return sum(y - x for x, y in _union([(x, y) for _, x, y in ks[i:j]])) / 1e9
 
 
 def run_slice(sl: Slice, t0: float, seconds: float, spec: Optional[Dict]) -> None:
