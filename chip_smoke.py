@@ -4952,8 +4952,8 @@ def _main(analytic_cpu, mesh_cpu) -> int:
                    if v["direct_agg_launches"]},
              service_launches={n: v["direct_agg"] for n, v in service["launches"].items()},
              sector_bound_ms=direct_y["sector_bound_ms"],
-             # l_shipdate has no static key domain: each chunk's partial
-             # takes the sort method, as the CPU dispatch predicts
+             # l_shipdate's range stats give a dense domain: each chunk's
+             # partial takes the direct method, as the CPU dispatch predicts
              daily_revenue={"launches": ooc["daily_revenue"]["launches"][0],
                             "chunks": ooc["daily_revenue"]["pieces"],
                             **{k: ooc["daily_revenue"].get("direct_agg", {}).get(k) for k in (

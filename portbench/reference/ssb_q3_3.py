@@ -1,0 +1,31 @@
+"""SSB Q3.3: lineorders between customers and suppliers in the cities
+UNITED KI1 and UNITED KI5, 1992-1997; the sum of revenue per customer
+city, supplier city and order year, by year ascending and revenue
+descending."""
+
+from ..ssb_reference import grouped_sum, is_, star, within
+
+ORDER_BY = ["d_year", "revenue"]
+LIMIT = None
+DENSE = {"values": ["lo_revenue"]}
+
+
+def _star(t):
+    return star(t, None, [
+        ("c_custkey", "lo_custkey", is_(t, "c_city", "UNITED KI1", "UNITED KI5")),
+        ("s_suppkey", "lo_suppkey", is_(t, "s_city", "UNITED KI1", "UNITED KI5")),
+        ("d_datekey", "lo_orderdate", within(t["d_year"], 1992, 1997)),
+    ])
+
+
+def live(t, params):
+    return _star(t)["live"]
+
+
+def answer(t, params, control=False):
+    s = _star(t)
+    keys = [("c_city", t["c_city"][s["c_custkey"]], "c_city"),
+            ("s_city", t["s_city"][s["s_suppkey"]], "s_city"),
+            ("d_year", t["d_year"][s["d_datekey"]], None)]
+    return grouped_sum(t, keys, t["lo_revenue"][s["live"]], "revenue",
+                       [("d_year", False), ("revenue", True)], control)

@@ -100,10 +100,12 @@ def test_everything_filtered_out():
     _compare(jb, tb, [], AGGS)
 
 
-def _sort_block(seed, n=1500):
+def _sort_block(seed, n=1500, ranged=False):
     """Int keys without a static domain: ``y`` with many ties, ``z``
     nullable (and nonzero payload under its NULLs), plus the aggregate
-    arguments of ``_block``."""
+    arguments of ``_block``.  The port's copies of the keys keep their
+    range stats only with ``ranged``, which gives them a dense domain
+    there."""
     jb, _ = _block(seed, 30)
     rng = np.random.default_rng(seed + 1)
     z_valid = rng.random(N) > 0.2
@@ -111,7 +113,11 @@ def _sort_block(seed, n=1500):
     jb = jb.with_column("kz", column_from_numpy(rng.integers(-3, 4, N),
                                                 INT64.with_nullable(True),
                                                 validity=z_valid))
-    return jb, blocks_from_numpy(export_blocks({"t": jb}), "cpu")["t"]
+    tb = blocks_from_numpy(export_blocks({"t": jb}), "cpu")["t"]
+    if not ranged:
+        for k in ("ky", "kz"):
+            tb = tb.with_column(k, dataclasses.replace(tb[k], stats=None))
+    return jb, tb
 
 
 @pytest.mark.parametrize("keys,num_slots", [

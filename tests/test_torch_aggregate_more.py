@@ -36,7 +36,8 @@ FLOAT_REL = 1e-12
 
 def _block(seed, n=N, clustered=False):
     """g3 (3 strings, nullable: masked method), g100 (100 strings:
-    segment), k (int64 with ties: sort), st (strings, nullable, for
+    segment), k (int64 with ties: sort; the port's copy has no range
+    stats, which would give it a dense domain), st (strings, nullable, for
     group_concat), x (nullable int64), u (int32), f (nullable double), d
     (nullable decimal), dt (date), ok (bool filter); a selection."""
     rng = np.random.default_rng(seed)
@@ -69,6 +70,7 @@ def _block(seed, n=N, clustered=False):
     if clustered:
         jb = dataclasses.replace(jb, clustered_by=("k",))
     tb = blocks_from_numpy(export_blocks({"t": jb}), "cpu")["t"]
+    tb = tb.with_column("k", dataclasses.replace(tb["k"], stats=None))
     if clustered:
         tb = dataclasses.replace(tb, clustered_by=("k",))
     return jb, tb

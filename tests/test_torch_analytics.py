@@ -126,7 +126,9 @@ def test_chip_smoke_numpy_versions_equal_the_port(catalogs, name):
 def test_chip_smoke_cpu_worker_runs_every_plan():
     """``chip_smoke.analytics_cpu_runs`` (the card run's CPU side, run in
     a worker process there) at sf 0.002, in this process: every plan,
-    held to numpy, no retry, no kernel branch predicted."""
+    held to numpy, no retry, no kernel branch predicted but one direct_agg
+    launch for each outer form of Q13, whose c_custkey range stats give a
+    dense domain at this scale."""
     import torch
 
     threads = torch.get_num_threads()
@@ -137,5 +139,6 @@ def test_chip_smoke_cpu_worker_runs_every_plan():
     assert sorted(runs) == sorted(A.ANALYTICS)
     for name, r in runs.items():
         assert r["checked"].startswith("numpy"), name
-        assert r["retries"] == 0 and r["predicted"] == (0, 0), name
+        dense = name in ("q13_full", "q13_right")
+        assert r["retries"] == 0 and r["predicted"] == ((1, 0) if dense else (0, 0)), name
         assert r["summary"]["names"] == tuple(r["summary"]["arrays"])

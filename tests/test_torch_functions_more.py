@@ -283,7 +283,7 @@ def test_like_matches_reference(pattern, escape):
 # ---------------------------------------------------------------------------
 
 
-def _agg_block(seed, n_keys, n=1500, clustered=False):
+def _agg_block(seed, n_keys, n=1500, clustered=False, ranged=True):
     rng = np.random.default_rng(seed)
     g = rng.integers(0, n_keys, n)
     g[g == 3] = 4  # group 3 empty; group 5's arguments all NULL below
@@ -306,16 +306,26 @@ def _agg_block(seed, n_keys, n=1500, clustered=False):
     jb = JBlock.from_dict(cols).with_sel(jnp.asarray(rng.random(n) > 0.2))
     if clustered:
         jb = dataclasses.replace(jb, clustered_by=("k",))
-    return jb, _port(jb)
+    tb = _port(jb)
+    if not ranged:
+        # without range stats the port's int keys have no dense domain
+        for k in ("k", "y"):
+            tb = tb.with_column(k, dataclasses.replace(tb[k], stats=None))
+    return jb, tb
 
 
-# method -> (keys, block kwargs, the port's method it must dispatch to)
+# method -> (keys, block kwargs, the port's method it must dispatch to);
+# the reference sorts int keys, which the port aggregates by the direct
+# method where their range stats prove a dense domain (300 and 90 x 7
+# slots here), and sorts without them
 METHODS = {
     "keyless": ([], dict(n_keys=8), "keyless"),
     "masked_direct": (["g"], dict(n_keys=8), "direct"),
     "segment_direct": (["g", "h"], dict(n_keys=40), "direct"),
-    "sort": (["k"], dict(n_keys=300), "sort"),
-    "sort_two_keys": (["y", "k"], dict(n_keys=7), "sort"),
+    "sort": (["k"], dict(n_keys=300), "direct"),
+    "sort_two_keys": (["y", "k"], dict(n_keys=7), "direct"),
+    "sort_unranged": (["k"], dict(n_keys=300, ranged=False), "sort"),
+    "sort_two_keys_unranged": (["y", "k"], dict(n_keys=7, ranged=False), "sort"),
     "stream": (["k"], dict(n_keys=300, clustered=True), "stream"),
 }
 MINMAX = [("min", "x", "mn"), ("max", "x", "mx"), ("min", "y", "mny"),

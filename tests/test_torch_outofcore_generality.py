@@ -177,8 +177,9 @@ def test_rehearsal_runs_match_reference(rehearsal_cat, tmp_path, run):
 
 def test_chip_smoke_predicts_launches_per_piece(rehearsal_cat):
     """The CPU dispatch ``chip_smoke.py`` predicts the card's launches
-    from: one stream_tile launch per Q1 partition, none for the ship-date
-    chunks (no static key domain: the sort method)."""
+    from: one stream_tile launch per Q1 partition, one direct_agg launch
+    per ship-date chunk (l_shipdate's range stats give a dense domain of
+    about 2,500 days: the direct method)."""
     import chip_smoke
 
     _, t_tables = rehearsal_cat
@@ -187,4 +188,4 @@ def test_chip_smoke_predicts_launches_per_piece(rehearsal_cat):
     assert pred["q1_partitioned"]["per_piece"] == (0, 1)
     assert pred["q1_partitioned"]["tail"] == (0, 0)
     assert pred["daily_revenue"]["mode"] == "chunked"
-    assert pred["daily_revenue"]["per_piece"] == (0, 0)
+    assert pred["daily_revenue"]["per_piece"] == (1, 0)

@@ -7,15 +7,21 @@ Counterpart of ``tiflash_tpu/ops/aggregate.py``.  Ported here:
 - ``_wide_rewrite``: exact wide-decimal sum/avg around the int64 methods,
   narrow-stored when stats prove int64 is exact, else by base-10^9 digit
   decomposition;
-- key packing for small static key domains (``pack_keys_direct``);
+- key packing for small key domains (``pack_keys_direct``): dictionary
+  strings, bools, and, beyond the reference, integer and date keys whose
+  range stats prove a span of at most ``DIRECT_DOMAIN_LIMIT`` values
+  (``key_range``), packed as ``v - lo``;
 - ``hash_aggregate`` dispatch to the keyless method (``aggregate_scalar``),
   the direct method (``aggregate_direct``) for packed key domains up to
-  ``DIRECT_DOMAIN_LIMIT``, the stream method (``aggregate_stream``) for
-  keys the block is clustered on, and the sort method
-  (``aggregate_sort``) for the other keys without a static domain.  The
-  direct method has its masked sub-method (domains <= 64), its
+  ``DIRECT_DOMAIN_LIMIT`` (but ranged keys the block is clustered on),
+  the stream method (``aggregate_stream``) for keys the block is
+  clustered on, and the sort method (``aggregate_sort``) for the other
+  keys.  The direct method has its masked sub-method (domains <= 64), its
   ``direct_agg`` kernel branch (``ops/cuda/direct_agg.py``) and its
-  segment sub-method.
+  segment sub-method.  Each call records a span ``agg.<method>``
+  (``scalar``, ``masked``, ``direct``, ``direct_segment``, ``stream`` or
+  ``sort``; rows, slots, keys) and adds to the counters
+  ``agg_calls_total_method_<method>`` and ``agg_rows_total_method_<method>``.
 
 The aggregate functions are the reference's: sum, count, avg, min, max,
 count_distinct, first, quantile, var_pop/var_samp/stddev_pop/stddev_samp,
@@ -58,6 +64,8 @@ from ..core.dtypes import (
     TypeKind,
     UINT64,
 )
+from ..runtime import tracing
+from ..runtime.metrics import METRICS
 
 # MySQL bit-reduction aggregates: 64-bit accumulation, never NULL (an
 # empty group holds the identity)
@@ -283,22 +291,57 @@ def _wide_rewrite(block: Block, aggs: Sequence[AggDesc]):
 # ---------------------------------------------------------------------------
 
 
-def key_domain_size(col: Column) -> Optional[int]:
+# integer-kinded keys that take a dense domain from range stats: the
+# signed integers, UINT8 and dates (int32 day numbers)
+_RANGED_KINDS = frozenset({TypeKind.INT8, TypeKind.INT16, TypeKind.INT32, TypeKind.INT64,
+                           TypeKind.UINT8, TypeKind.DATE})
+
+
+def key_range(col: Column) -> Optional[Tuple[int, int]]:
+    """(lo, hi) of an integer or date key whose ``stats`` prove a span of
+    at most ``DIRECT_DOMAIN_LIMIT`` values, else None (no stats, another
+    kind, or a wider span)."""
+    if col.stats is None or col.dtype.kind not in _RANGED_KINDS or col.data.ndim != 1:
+        return None
+    lo, hi = int(col.stats[0]), int(col.stats[1])
+    if hi - lo + 1 > DIRECT_DOMAIN_LIMIT:
+        return None
+    return lo, hi
+
+
+def key_domain_size(col: Column, ranged: bool = True) -> Optional[int]:
     """Statically known key domain, if any: |dictionary| for strings, 2 for
-    bool.  (+1 slot for NULL when nullable.)"""
+    bool, and with ``ranged`` ``hi - lo + 1`` for an integer or date key
+    whose stats prove the span (``key_range``).  (+1 slot for NULL when
+    nullable.)"""
     base: Optional[int] = None
     if col.dtype.is_string and col.dictionary is not None:
         base = max(1, len(col.dictionary))
     elif col.dtype.kind is TypeKind.BOOL:
         base = 2
+    elif ranged:
+        span = key_range(col)
+        if span is not None:
+            base = span[1] - span[0] + 1
     if base is None:
         return None
     return base + (1 if col.dtype.nullable or col.validity is not None else 0)
 
 
-def pack_keys_direct(cols: Sequence[Column]) -> Optional[Tuple[torch.Tensor, int]]:
-    """Mixed-radix pack of small-domain keys -> (slot_ids int32, domain)."""
-    domains = [key_domain_size(c) for c in cols]
+def _key_offset(col: Column) -> int:
+    """What ``pack_keys_direct`` subtracts from a key's values: a ranged
+    key's ``lo``, else 0."""
+    if col.dtype.is_string or col.dtype.kind is TypeKind.BOOL:
+        return 0
+    return key_range(col)[0]
+
+
+def pack_keys_direct(cols: Sequence[Column],
+                     ranged: bool = True) -> Optional[Tuple[torch.Tensor, int]]:
+    """Mixed-radix pack of small-domain keys -> (slot_ids int32, domain);
+    ``ranged`` as for ``key_domain_size``.  A ranged integer key packs as
+    ``v - lo``; dead rows may hold any slot (every consumer masks them)."""
+    domains = [key_domain_size(c, ranged) for c in cols]
     if any(d is None for d in domains):
         return None
     total = 1
@@ -306,7 +349,13 @@ def pack_keys_direct(cols: Sequence[Column]) -> Optional[Tuple[torch.Tensor, int
         total *= d
     slot = None
     for c, d in zip(cols, domains):
-        v = c.data.to(torch.int32)
+        lo = _key_offset(c)
+        if lo == 0:
+            v = c.data.to(torch.int32)
+        elif c.data.dtype == torch.int64:
+            v = (c.data - lo).to(torch.int32)
+        else:
+            v = c.data.to(torch.int32) - lo
         if c.validity is not None:
             v = torch.where(c.validity, v + 1, torch.zeros_like(v))  # NULL -> 0
         elif c.dtype.nullable:
@@ -331,6 +380,9 @@ def unpack_keys_direct(
         else:
             validity = None
             data = v
+        lo = _key_offset(c)
+        if lo:
+            data = data.to(torch.int64) + lo
         out.append(
             Column(data.to(c.dtype.torch_dtype), validity, c.dtype, c.dictionary)
         )
@@ -338,7 +390,9 @@ def unpack_keys_direct(
     return out
 
 
-DIRECT_DOMAIN_LIMIT = 4096
+# the direct method's largest domain: on an H100 at 60M rows it beat the
+# sort method by 30-40x at 5,408 and 8,008 slots (PERF.md, section 6)
+DIRECT_DOMAIN_LIMIT = 8192
 MASKED_DOMAIN_LIMIT = 64
 
 
@@ -917,6 +971,18 @@ def _accumulate_direct_kernel(
     return out, live_counts > 0
 
 
+def direct_submethod(block: Block, aggs: Sequence[AggDesc], domain: int,
+                     use_kernel: Optional[bool] = None) -> str:
+    """The sub-method ``aggregate_direct`` takes: ``masked`` (with
+    ``use_kernel=None``, up to MASKED_DOMAIN_LIMIT slots), ``direct`` (the
+    ``direct_agg`` kernel branch) or ``direct_segment``."""
+    if use_kernel is None and domain <= MASKED_DOMAIN_LIMIT and _masked_eligible(aggs):
+        return "masked"
+    if use_kernel is None:
+        use_kernel = _kernel_eligible(block, aggs)
+    return "direct" if use_kernel else "direct_segment"
+
+
 def aggregate_direct(
     block: Block,
     keys: Sequence[str],
@@ -935,26 +1001,21 @@ def aggregate_direct(
     slot_ids, domain = slots_domain
     live = block.sel_mask()
     dev = live.device
-    if (use_kernel is None and domain <= MASKED_DOMAIN_LIMIT
-            and _masked_eligible(aggs)):
+    if use_kernel and not _kernel_eligible(block, aggs):
+        raise ValueError("the direct_agg kernel takes sum/count/avg over "
+                         "fixed-point arguments without a filter")
+    method = direct_submethod(block, aggs, domain, use_kernel)
+    if method == "masked":
         acc, occupied = _accumulate_masked(aggs, block, slot_ids, live, domain)
+    elif method == "direct":
+        acc, occupied = _accumulate_direct_kernel(aggs, block, slot_ids, live, domain)
     else:
-        if use_kernel is None:
-            use_kernel = _kernel_eligible(block, aggs)
-        elif use_kernel and not _kernel_eligible(block, aggs):
-            raise ValueError("the direct_agg kernel takes sum/count/avg over "
-                             "fixed-point arguments without a filter")
-        if use_kernel:
-            acc, occupied = _accumulate_direct_kernel(aggs, block, slot_ids,
-                                                      live, domain)
-        else:
-            gids = torch.where(live, slot_ids,
-                               torch.full_like(slot_ids, domain))
-            dflags = _compute_distinct_flags(block, keys, aggs, live)
-            acc = _accumulate(aggs, block, gids, live, domain, dflags)
-            occ = torch.zeros(domain + 1, dtype=torch.int32, device=dev)
-            occ.index_add_(0, gids.long(), live.to(torch.int32))
-            occupied = occ[:domain] > 0
+        gids = torch.where(live, slot_ids, torch.full_like(slot_ids, domain))
+        dflags = _compute_distinct_flags(block, keys, aggs, live)
+        acc = _accumulate(aggs, block, gids, live, domain, dflags)
+        occ = torch.zeros(domain + 1, dtype=torch.int32, device=dev)
+        occ.index_add_(0, gids.long(), live.to(torch.int32))
+        occupied = occ[:domain] > 0
     key_cols = unpack_keys_direct(
         torch.arange(domain, dtype=torch.int32, device=dev),
         [block[k] for k in keys])
@@ -1385,7 +1446,8 @@ def auto_passthrough_aggregate(
     """Adaptive first-stage aggregation (``mode="auto"``): aggregate, or
     pass rows through unreduced when a strided sample of 2048 rows shows
     more distinct key hashes than ``passthrough_ratio`` of its live rows.
-    A packed key domain up to ``DIRECT_DOMAIN_LIMIT`` always aggregates.
+    A static key domain (dictionary strings, bools) up to
+    ``DIRECT_DOMAIN_LIMIT`` always aggregates.
     The reference computes both forms and selects with ``lax.cond``; here
     the sample's verdict is read on the host (one sync) and only the
     chosen form runs.  Either way the columns carry the aggregate's
@@ -1408,9 +1470,9 @@ def auto_passthrough_aggregate(
         return fin(AggregateResult(b, torch.ones((), dtype=torch.int32, device=dev),
                                    torch.zeros((), dtype=torch.int64, device=dev)))
     key_cols = [block[k] for k in keys]
-    packed = pack_keys_direct(key_cols)
+    packed = pack_keys_direct(key_cols, ranged=False)
     if packed is not None and packed[1] <= DIRECT_DOMAIN_LIMIT:
-        # tiny domain: always aggregate, never pass through
+        # tiny static domain: always aggregate, never pass through
         return fin(aggregate_direct(block, keys, aggs, packed))
     from .hashing import hash_columns
 
@@ -1479,7 +1541,6 @@ def _dispatch_aggregate(
     aggs: Sequence[AggDesc],
     num_slots: Optional[int] = None,
 ) -> AggregateResult:
-    dev = block.device
     for a in aggs:
         if keys and a.func in ("approx_cd_partial", "approx_cd_final"):
             # the sketch's stages are keyless (a grouped approx is exact,
@@ -1490,29 +1551,59 @@ def _dispatch_aggregate(
         # exact
         aggs = [dataclasses.replace(a, func="count_distinct")
                 if a.func == "approx_count_distinct" else a for a in aggs]
+    method, packed = _choose_method(block, keys, aggs)
+    if packed is not None:
+        slots = packed[1]
+    else:
+        slots = 1 if method == "scalar" else (num_slots or block.capacity)
+    METRICS.counter(f"agg_calls_total_method_{method}").inc()
+    METRICS.counter(f"agg_rows_total_method_{method}").inc(block.capacity)
+    with tracing.span("agg." + method, rows=block.capacity, slots=slots, keys=len(keys)):
+        return _run_method(method, block, keys, aggs, packed, slots)
+
+
+def _choose_method(block: Block, keys: Sequence[str], aggs: Sequence[AggDesc]):
+    """(method, packed keys or None): ``scalar`` without keys; ``sort``
+    for group_concat and for bit reductions above the masked method;
+    ``aggregate_direct``'s sub-method (``direct_submethod``) for a packed
+    domain up to DIRECT_DOMAIN_LIMIT, unless a key's domain comes from its
+    range stats and the block is clustered on the keys: ``stream`` for
+    clustered keys, as without the stats; else ``sort``."""
     if not keys:
+        return "scalar", None
+    if any(a.func == "group_concat" for a in aggs):
+        # group_concat needs the sorted contiguous-span layout
+        return "sort", None
+    cols = [block[k] for k in keys]
+    cb = block.clustered_by
+    # equal group keys are already adjacent: no sort
+    clustered = bool(cb) and len(keys) <= len(cb) and set(keys) == set(cb[: len(keys)])
+    packed = pack_keys_direct(cols)
+    if (packed is not None and packed[1] <= DIRECT_DOMAIN_LIMIT
+            and not (clustered and any(key_domain_size(c, ranged=False) is None
+                                       for c in cols))):
+        if (any(a.func in _BIT_FUNCS for a in aggs)
+                and (packed[1] > MASKED_DOMAIN_LIMIT or not _masked_eligible(aggs))):
+            # bit reductions take the masked method or the sort method
+            return "sort", None
+        return direct_submethod(block, aggs, packed[1]), packed
+    return ("stream" if clustered else "sort"), None
+
+
+def _run_method(method: str, block: Block, keys: Sequence[str], aggs: Sequence[AggDesc],
+                packed, slots: int) -> AggregateResult:
+    dev = block.device
+    if method == "scalar":
         if aggs and all(a.func == "approx_cd_partial" for a in aggs):
             return kmv_partial(block, aggs)
         b = aggregate_scalar(block, aggs)
         return AggregateResult(b, torch.ones((), dtype=torch.int32, device=dev),
                                torch.zeros((), dtype=torch.int64, device=dev))
-    if any(a.func == "group_concat" for a in aggs):
-        # group_concat needs the sorted contiguous-span layout
-        return aggregate_sort(block, keys, aggs, num_slots or block.capacity)
-    packed = pack_keys_direct([block[k] for k in keys])
-    if packed is not None and packed[1] <= DIRECT_DOMAIN_LIMIT:
-        if (any(a.func in _BIT_FUNCS for a in aggs)
-                and (packed[1] > MASKED_DOMAIN_LIMIT or not _masked_eligible(aggs))):
-            # bit reductions take the masked method or the sort method
-            return aggregate_sort(block, keys, aggs, num_slots or block.capacity)
-        return aggregate_direct(block, keys, aggs, packed)
-    if num_slots is None:
-        num_slots = block.capacity
-    cb = block.clustered_by
-    if cb and len(keys) <= len(cb) and set(keys) == set(cb[: len(keys)]):
-        # equal group keys are already adjacent: no sort
-        return aggregate_stream(block, keys, aggs, num_slots)
-    return aggregate_sort(block, keys, aggs, num_slots)
+    if method == "stream":
+        return aggregate_stream(block, keys, aggs, slots)
+    if method == "sort":
+        return aggregate_sort(block, keys, aggs, slots)
+    return aggregate_direct(block, keys, aggs, packed)
 
 
 __all__ = [

@@ -585,13 +585,13 @@ def _fuse(node, tables):
         if not isinstance(e, ColumnRef):
             raise Ineligible("key is not a passthrough column")
         c = base[e.name]
-        if key_domain_size(c) is None:
-            raise Ineligible("key domain unknown")
+        if key_domain_size(c, ranged=False) is None:
+            raise Ineligible("key is not a dictionary string or a bool")
         key_cols.append(c)
         key_names.append(e.name)
     domain = 1
     for c in key_cols:
-        domain *= key_domain_size(c)
+        domain *= key_domain_size(c, ranged=False)
     if domain > MAX_SLOTS:
         raise Ineligible("domain too large")
 
@@ -804,7 +804,7 @@ def _fuse(node, tables):
         elif c.dtype.nullable:
             v = TP.add(v, TP.const(1))
         key_slot = v if i == 0 else TP.add(
-            TP.mul(key_slot, TP.const(key_domain_size(c))), v)
+            TP.mul(key_slot, TP.const(key_domain_size(c, ranged=False))), v)
     pvals: List = [None] * len(pieces)
     for p, pidx in zip(pl_, pop_):
         v = _part_node(p)
