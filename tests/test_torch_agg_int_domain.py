@@ -9,7 +9,10 @@ and ``unpack_keys_direct`` adds ``lo`` back.  Each case runs the port's
 any order: neither method promises one), the dtypes and the group counts
 are equal, and the port's method is the one the rule gives, read from
 the ``agg_calls_total_method_<method>`` counters and the ``agg.<method>``
-span.
+span; ``agg_ranged_calls_total`` counts the dense calls whose domain rests
+on range stats.  A ``year()`` of a DATE or DATETIME carries the image of
+its argument's stats (``expr/functions.py:_year_image``), so year-keyed
+groups, as in TPC-H Q7, Q8 and Q9, take the dense method too.
 """
 
 import dataclasses
@@ -125,9 +128,12 @@ def test_int_key_domain_matches_reference(case):
     cols = [tb[k] for k in keys]
     packed = TA.pack_keys_direct(cols)
     assert (packed[1] if packed is not None and packed[1] <= LIMIT else None) == domain
+    ranged_before = METRICS.dump()["agg_ranged_calls_total"]
     got, groups = _both(jb, tb, list(keys))
     assert got == method
     assert groups > 0
+    # a dense domain that rests on range stats counts as ranged
+    assert METRICS.dump()["agg_ranged_calls_total"] == ranged_before + (domain is not None)
 
 
 def test_no_stats_keeps_the_sort_method():
@@ -199,3 +205,120 @@ def test_spans_and_counters_name_the_method():
     assert METRICS.dump()["agg_rows_total_method_direct"] == rows_before + N
     TA.hash_aggregate(tb, ["d_year"], aggs)
     assert tracing.drain() == []
+
+
+# ---------------------------------------------------------------------------
+# year(): the image of a date's range stats (expr/functions.py:_year_image)
+# ---------------------------------------------------------------------------
+
+DAY_US = 86_400_000_000
+ZERO = JD.ZERO_DATE_DAYS
+
+
+def _day(y, m, d):
+    return (np.datetime64(f"{y:04d}-{m:02d}-{d:02d}", "D")
+            - np.datetime64("1970-01-01", "D")).astype(np.int64)
+
+
+def _np_year(days):
+    """numpy's proleptic Gregorian year of a day number: an independent
+    calendar."""
+    return int(np.datetime64(int(days), "D").astype("datetime64[Y]").astype(np.int64)) + 1970
+
+
+def _spread(rng, lo, hi, n=N):
+    """``n`` values in [lo, hi], both ends present."""
+    return np.concatenate([[lo, hi], rng.integers(lo, hi + 1, n - 2)])
+
+
+DATE_N = JD.DATE.with_nullable(True)
+YEAR_CASES = {
+    # name: (dtype, values (and validity) from a rng, the image, the
+    # port's method, its domain)
+    "date_one_year": (JD.DATE, lambda r: (_spread(r, _day(1995, 1, 1), _day(1995, 12, 31)), None),
+                      (1995, 1995), "masked", 1),
+    "date_seven_years": (JD.DATE, lambda r: (_spread(r, _day(1992, 1, 1), _day(1998, 12, 31)),
+                                             None), (1992, 1998), "masked", 7),
+    "date_year_boundaries": (JD.DATE, lambda r: (_spread(r, _day(1992, 12, 31), _day(2000, 1, 1)),
+                                                 None), (1992, 2000), "masked", 9),
+    "datetime_one_year": (JD.DATETIME, lambda r: (_spread(
+        r, _day(2001, 1, 1) * DAY_US, _day(2002, 1, 1) * DAY_US - 1), None),
+        (2001, 2001), "masked", 1),
+    "datetime_two_centuries": (JD.DATETIME, lambda r: (_spread(
+        r, _day(1900, 12, 31) * DAY_US + DAY_US - 1, _day(2100, 1, 1) * DAY_US), None),
+        (1900, 2100), "direct", 201),
+    # the ZERO date's year is 0: the image takes 0 in, and the
+    # zero-date rows land in the domain
+    "date_straddles_zero": (JD.DATE, lambda r: (np.where(
+        r.random(N) < 0.3, ZERO, _spread(r, ZERO - 400, ZERO + 400)), None),
+        (-8025, 0), "direct", 8026),
+    "datetime_straddles_zero": (JD.DATETIME, lambda r: (np.where(
+        r.random(N) < 0.3, ZERO * DAY_US, _spread(r, (ZERO - 100) * DAY_US, (ZERO + 100) * DAY_US)),
+        None), (-8024, 0), "direct", 8025),
+    "nullable": (DATE_N, lambda r: (_spread(r, _day(1992, 1, 1), _day(1998, 12, 31)),
+                                    r.random(N) > 0.2), (1992, 1998), "masked", 8),
+    "over_the_cap": (JD.DATE, lambda r: (_spread(r, -2_600_000, 2_600_000), None),
+                     (-5149, 9088), "sort", None),
+}
+
+
+@pytest.mark.parametrize("case", list(YEAR_CASES))
+def test_year_of_a_date_takes_the_image_of_its_stats(case):
+    from tiflash_tpu.expr import compile as JC
+    from tiflash_tpu.expr import nodes as JE
+    from tiflash_tpu_torch.expr import compile as TC
+    from tiflash_tpu_torch.expr import nodes as TE
+
+    dtype, make, image, method, domain = YEAR_CASES[case]
+    values, validity = make(np.random.default_rng(len(case)))
+    jb, tb = _block(len(case), {"d": (dtype, values, validity)})
+    jy = jax.jit(lambda b: JC.ExprEvaluator(b).evaluate(JE.call("year", JE.col("d"))))(jb)
+    ty = TC.ExprEvaluator(tb).evaluate(TE.call("year", TE.col("d")))
+    assert ty.stats == image
+    # the image by an independent calendar, from the argument's stats
+    lo, hi = (v // DAY_US if dtype.kind is JD.TypeKind.DATETIME else v for v in tb["d"].stats)
+    zero = lo <= ZERO <= hi
+    assert image == (min(_np_year(lo), 0) if zero else _np_year(lo),
+                     max(_np_year(hi), 0) if zero else _np_year(hi))
+    # the stats invariant: every live value lies in the interval
+    live = tb.sel & ty.valid_mask()
+    assert image[0] <= int(ty.data[live].min()) and int(ty.data[live].max()) <= image[1]
+    assert zero == bool((ty.data[live] == 0).any())
+    assert TA.key_domain_size(ty) == (None if domain is None else domain)
+    got, groups = _both(jb.with_column("y", jy), tb.with_column("y", ty), ["y"])
+    assert got == method and groups > 0
+
+
+def test_q8_groups_its_years_on_the_dense_method(monkeypatch):
+    """TPC-H Q8 groups by ``year(o_orderdate)``: o_orderdate's 7 years
+    (one more slot for NULL) take the masked method, and ``mkt_share``'s
+    wide division runs over those slots, not over a sort's capacity.
+    The rows are the reference's."""
+    import chip_smoke
+    from tiflash_tpu.bench import tpch_queries as JQ
+    from tiflash_tpu.runtime.executor import run_query as j_run
+    from tiflash_tpu.storage.tpch import generate_tpch as j_generate
+    from tiflash_tpu_torch.bench import tpch_queries as TQ
+    from tiflash_tpu_torch.core import wide as W
+    from tiflash_tpu_torch.runtime.executor import run_query as t_run
+    from tiflash_tpu_torch.storage.tpch import generate_tpch as t_generate
+
+    j_tables = j_generate(sf=0.002, seed=16, tables=chip_smoke.EIGHT_TABLES).blocks()
+    t_cat = t_generate(sf=0.002, seed=16, tables=chip_smoke.EIGHT_TABLES)
+    divided, slots = [], []
+    real_div = W.wide_divmod
+    monkeypatch.setattr(W, "wide_divmod", lambda w, d: (
+        divided.append(tuple(w.shape)) or real_div(w, d)))
+    real_direct = TA.aggregate_direct
+    monkeypatch.setattr(TA, "aggregate_direct", lambda b, k, a, sd, use_kernel=None: (
+        slots.append(sd[1]) or real_direct(b, k, a, sd, use_kernel)))
+    before = METRICS.dump()
+    got, _ = t_run(TQ.q8_plan(), t_cat.blocks("cpu"))
+    after = METRICS.dump()
+    want, _ = j_run(JQ.q8_plan(), j_tables)
+    assert len(slots) == 1 and slots[0] <= 9
+    assert after["agg_ranged_calls_total"] == before["agg_ranged_calls_total"] + 1
+    assert divided and all(shape[0] == slots[0] for shape in divided)
+    assert [repr(c.dtype) for c in got.columns] == [repr(c.dtype) for c in want.columns]
+    assert got.to_pylists() == want.to_pylists()
+    assert len(got.to_pylists()["o_year"]) == 2

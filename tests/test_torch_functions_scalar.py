@@ -360,10 +360,21 @@ def _stats(c):
     return None if c.stats is None else tuple(int(x) for x in c.stats)
 
 
-def assert_same_column(j, t, ulps=0):
+# cases whose range stats the port gives where the reference gives none:
+# the image of ``year`` (``expr/functions.py:_year_image``), so that a
+# year-keyed group takes the dense method
+PORT_STATS = {"year dt", "year ts", "extract YEAR dt"}
+
+
+def assert_same_column(j, t, ulps=0, port_stats=False):
     assert repr(t.dtype) == repr(j.dtype)
     # range stats choose the aggregation method downstream
-    assert _stats(t) == _stats(j)
+    if port_stats:
+        assert j.stats is None and t.stats is not None
+        lo, hi = _stats(t)
+        assert all(lo <= v <= hi for v in t.to_pylist() if v is not None)
+    else:
+        assert _stats(t) == _stats(j)
     jv = None if j.validity is None else np.asarray(j.validity)
     tv = None if t.validity is None else t.validity.numpy()
     assert (jv is None) == (tv is None)
@@ -384,7 +395,7 @@ def assert_same_column(j, t, ulps=0):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_function_matches_reference(blocks, case):
     j, t = _eval_both(blocks, CASES[case])
-    assert_same_column(j, t, ULPS.get(case.split()[0], 0))
+    assert_same_column(j, t, ULPS.get(case.split()[0], 0), case in PORT_STATS)
 
 
 def test_every_new_function_has_a_case():

@@ -23,6 +23,7 @@ from tiflash_tpu.storage.tpch import generate_tpch as j_generate
 from tiflash_tpu.testing.oracle import assert_tables_equal
 
 import chip_smoke
+from torch_agg_rule import by_rule, kernel_calls, record_ranged
 from tiflash_tpu_torch.bench import tpch_queries as TQ
 from tiflash_tpu_torch.ops import aggregate as TA
 from tiflash_tpu_torch.ops import stream_fuse as TSF
@@ -74,38 +75,21 @@ def _result(block):
     return block.to_pylists(), [repr(c.dtype) for c in block.columns]
 
 
-def reference_slots(j_plan, j_tables, rewrites=True):
-    """The ``num_slots`` of each Aggregation (DFS order) in the tree the
-    reference's runner runs: rewritten, then auto-sized."""
-    from tiflash_tpu.plan.auto import autosize_plan
-    from tiflash_tpu.plan.rewrite import eager_aggregation, prune_columns
-
-    if rewrites:
-        j_plan = prune_columns(eager_aggregation(j_plan))
-    autosize_plan(j_plan, j_tables)
-    out, stack = [], [j_plan]
-    while stack:
-        n = stack.pop()
-        if isinstance(n, JP.Aggregation):
-            out.append(n.num_slots)
-        stack.extend(reversed(n.children))
-    return out
-
-
 @pytest.mark.parametrize("query", ["q7", "q7_pairs"])
 def test_run_query_matches_reference(catalogs, reference_results, monkeypatch, query):
     j_tables, t_cat = catalogs
-    dispatched = []
+    dispatched, ranged = [], []
+    record_ranged(monkeypatch, ranged)
     real_direct, real_sort = TA.aggregate_direct, TA.aggregate_sort
     monkeypatch.setattr(TA, "aggregate_direct", lambda b, k, a, sd, use_kernel=None: (
-        dispatched.append(("direct", sd[1], use_kernel))
+        dispatched.append(("direct", list(k), sd[1], use_kernel))
         or real_direct(b, k, a, sd, use_kernel)))
     monkeypatch.setattr(TA, "aggregate_sort", lambda b, k, a, ns: (
-        dispatched.append(("sort", ns)) or real_sort(b, k, a, ns)))
-    kernel_calls = []
+        dispatched.append(("sort", list(k), ns)) or real_sort(b, k, a, ns)))
+    launches = []
     real_sums = TDA.direct_sums
     monkeypatch.setattr(TDA, "direct_sums", lambda *a: (
-        kernel_calls.append(a[-1]) or real_sums(*a)))
+        launches.append(a[-1]) or real_sums(*a)))
     fused = TSF.FUSE_STATS["count"]
 
     out, summary = t_run(T_PLANS[query](), t_cat.blocks("cpu"))
@@ -119,12 +103,19 @@ def test_run_query_matches_reference(catalogs, reference_results, monkeypatch, q
     assert summary.result_rows == int(want.num_rows()) > 0
     assert TSF.FUSE_STATS["count"] == fused  # the fuse declined over the joins
     if query == "q7":
-        # the runner's auto-sized capacity, the reference's
-        slots = reference_slots(J_PLANS[query](), j_tables)
-        assert dispatched == [("sort", slots[0])] and kernel_calls == []
+        # the reference sorts; the port's l_year carries year()'s range
+        # stats, so by the rule it takes the direct method over 26 x 26 x 7
+        # slots (each nation nullable after its join; l_shipdate's stats
+        # span 7 years)
+        keys = ["supp_nation", "cust_nation", "l_year"]
+        assert [c[:2] for c in dispatched] == by_rule([("sort", keys)], ranged)
+        assert ranged == [(tuple(keys), 26 * 26 * 7, True)]
+        assert dispatched == [("direct", keys, 26 * 26 * 7, None)]
+        assert len(launches) == kernel_calls(ranged) and launches == [26 * 26 * 7]
     else:
         # each nation key is nullable after its join: 26 x 26 slots
-        assert dispatched == [("direct", 676, None)] and kernel_calls == [676]
+        assert dispatched == [("direct", ["supp_nation", "cust_nation"], 676, None)]
+        assert launches == [676] and ranged == []
 
 
 def test_join_outputs_get_a_validity(catalogs):

@@ -6,7 +6,8 @@ The reference-side plan is built from the port's plan by ``to_reference``,
 which maps every node and expression dataclass to the JAX package's
 same-named class.  Results match at tolerance zero (every output is an
 integer, a decimal mantissa, a date or a string), the aggregation methods
-match call by call, and so does the fused stream-agg path's decision:
+match call by call (held to the rule of ``torch_agg_rule``), and so
+does the fused stream-agg path's decision:
 a spec-form Q1 or Q6 compares a column with a function of a literal,
 which the fuse cannot encode, so both packages run it unfused.  Where the
 spec form yields the builder's quantity (Q1, Q4, Q6, Q8, Q12's counts)
@@ -34,6 +35,7 @@ from tiflash_tpu.storage.tpch import generate_tpch as j_generate
 
 import chip_smoke
 from test_torch_tpch_more_a import _dispatch_spy
+from torch_agg_rule import by_rule, kernel_calls, record_ranged
 from tiflash_tpu_torch.bench import tpch_spec as S
 from tiflash_tpu_torch.ops import aggregate as TA
 from tiflash_tpu_torch.ops import stream_fuse as TSF
@@ -92,16 +94,24 @@ def test_spec_query_matches_reference(catalogs, monkeypatch, query, seed):
     monkeypatch.setenv("TIFLASH_TPU_STREAM_KERNEL", "interpret")
     j_tables, t_cat = catalogs[seed]
     spec, _, _ = S.SPEC_QUERIES[query]
-    j_calls, t_calls = [], []
+    j_calls, t_calls, ranged = [], [], []
     _dispatch_spy(monkeypatch, JA, j_calls)
+    record_ranged(monkeypatch, ranged)
     _dispatch_spy(monkeypatch, TA, t_calls)
+    kernel_branch = []
+    real_kernel = TA._accumulate_direct_kernel
+    monkeypatch.setattr(TA, "_accumulate_direct_kernel", lambda *a: (
+        kernel_branch.append(1) or real_kernel(*a)))
     j_fused, t_fused = JSF.FUSE_STATS["count"], TSF.FUSE_STATS["count"]
 
     want, j_summary = j_run(to_reference(spec()), j_tables)
     got, summary = t_run(spec(), t_cat.blocks("cpu"))
 
     assert TSF.FUSE_STATS["count"] - t_fused == JSF.FUSE_STATS["count"] - j_fused
-    assert t_calls == j_calls
+    # a sort whose keys the port packs by range stats is direct (Q8's
+    # o_year, through year()'s image)
+    assert t_calls == by_rule(j_calls, ranged)
+    assert len(kernel_branch) == kernel_calls(ranged)
     assert list(got.names) == list(want.names)
     assert [repr(c.dtype) for c in got.columns] == [repr(c.dtype) for c in want.columns]
     assert got.to_pylists() == want.to_pylists()

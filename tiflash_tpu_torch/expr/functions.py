@@ -20,7 +20,8 @@ Counterpart of ``tiflash_tpu/expr/functions.py``, in eager torch:
 - date parts and date/datetime functions (``date_add_*``, ``datediff``,
   ``week``/``yearweek``, ``from_days``, ``period_*``, ``unix_timestamp``,
   ``from_unixtime``, ``interval``, ``cast_fsp_round`` ...);
-- ``propagate_stats``, the reference's interval arithmetic;
+- ``propagate_stats``, the reference's interval arithmetic, and beyond
+  it the image of ``year`` (so a year-keyed group takes the dense method);
 - the string functions of the registry (``upper`` ... ``json_valid``):
   each is a host table over the argument's dictionary (numbers get their
   MySQL text first), copied to the column's device and gathered by code
@@ -983,9 +984,12 @@ def propagate_stats(name: str, args: Sequence[Column], out: DataType):
 
     The ``Column.stats`` invariant survives arithmetic as interval
     arithmetic, mirroring the exact scale transforms ``_arith_eval``
-    applies.  Returns None when any endpoint could overflow int64."""
+    applies, and through ``year`` (``_year_image``).  Returns None when
+    any endpoint could overflow int64."""
     if out.is_float or out.is_string:
         return None
+    if name == "year":
+        return _year_image(args[0])
     ivs = []
     sel = {"if": args[1:], "coalesce": args, "case_when": None}.get(
         name, args if name in ("plus", "minus", "multiply") else ())
@@ -1046,6 +1050,21 @@ def propagate_stats(name: str, args: Sequence[Column], out: DataType):
             q = _pow10(extra)
             lo, hi = lo // q - 1, hi // q + 1  # half-up rounding slack
     return (lo, hi) if max(abs(lo), abs(hi)) < _I63 else None
+
+
+def _year_image(a: Column):
+    """``year`` is monotone in the day number: a DATE or DATETIME span
+    [lo, hi] maps to [year(lo), year(hi)], widened to take in 0 where the
+    ZERO date, whose year is 0, lies in the span."""
+    if a.stats is None or a.data.ndim != 1 \
+            or a.dtype.kind not in (TypeKind.DATE, TypeKind.DATETIME):
+        return None
+    ends = torch.tensor([int(a.stats[0]), int(a.stats[1])], dtype=torch.int64)
+    days = _date_days(Column(ends, None, a.dtype))
+    lo, hi = (int(y) for y in _civil_from_days(days)[0])
+    if int(days[0]) <= ZERO_DATE_DAYS <= int(days[1]):
+        lo, hi = min(lo, 0), max(hi, 0)
+    return lo, hi
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,9 @@ Counterpart of ``tiflash_tpu/ops/aggregate.py``.  Ported here:
   segment sub-method.  Each call records a span ``agg.<method>``
   (``scalar``, ``masked``, ``direct``, ``direct_segment``, ``stream`` or
   ``sort``; rows, slots, keys) and adds to the counters
-  ``agg_calls_total_method_<method>`` and ``agg_rows_total_method_<method>``.
+  ``agg_calls_total_method_<method>`` and ``agg_rows_total_method_<method>``;
+  a dense call whose domain rests on a key's range stats also adds to
+  ``agg_ranged_calls_total``.
 
 The aggregate functions are the reference's: sum, count, avg, min, max,
 count_distinct, first, quantile, var_pop/var_samp/stddev_pop/stddev_samp,
@@ -1558,6 +1560,9 @@ def _dispatch_aggregate(
         slots = 1 if method == "scalar" else (num_slots or block.capacity)
     METRICS.counter(f"agg_calls_total_method_{method}").inc()
     METRICS.counter(f"agg_rows_total_method_{method}").inc(block.capacity)
+    if packed is not None and any(key_domain_size(block[k], ranged=False) is None
+                                  for k in keys):
+        METRICS.counter("agg_ranged_calls_total").inc()
     with tracing.span("agg." + method, rows=block.capacity, slots=slots, keys=len(keys)):
         return _run_method(method, block, keys, aggs, packed, slots)
 

@@ -77,6 +77,9 @@ METRICS = _Registry()
 #                    exchange_gather_bytes_total (bytes written into
 #                    the receiving shards, exchange/shuffle.py)
 #   admission        admission_waits_total, admission_wait_seconds_total
+#   aggregation      the port adds agg_ranged_calls_total (grouped calls
+#                    whose dense domain rests on a key's range stats,
+#                    ops/aggregate.py; beside agg_calls_total_method_*)
 for _n in (
     "queries_total",
     "query_seconds_total",
@@ -106,6 +109,7 @@ for _n in (
     "exchange_gather_bytes_total",
     "admission_waits_total",
     "admission_wait_seconds_total",
+    "agg_ranged_calls_total",
 ):
     METRICS.counter(_n)
 
