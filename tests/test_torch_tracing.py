@@ -190,7 +190,7 @@ def _until_request_closed(timeout_s=10.0):
 def test_one_query_gives_the_request_tree(server, spans):
     plan = q3_plan()
     _query(server, plan)   # warm
-    tracing.drain()
+    _until_request_closed()   # the warm-up's request span, closed after its reply
     covers = []
     for _ in range(3):
         t_send = time.monotonic_ns()

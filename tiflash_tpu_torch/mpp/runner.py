@@ -5,18 +5,22 @@ plan with exchanges into one ``shard_map`` function; here one controller
 walks the plan once and each node acts on a list with one Block per
 local shard (``mpp/mesh.py``):
 
-- a node without an exchange maps over the shards with the single-device
-  operators (``Mesh.map``: replicated inputs are computed once);
+- a node without an exchange runs the single-device compiler's local
+  step (``plan/compiler.py:apply_local``) on each shard (``Mesh.map``:
+  replicated inputs are computed once), so what a node does is written
+  once for both walks;
 - an exchange (``ExchangeReceiver`` over an ``ExchangeSender``), the
   skew join and the collectives inside nodes act across the list;
 - a node with a collective in its middle runs in phases: local, combine,
-  apply.  That covers the runtime-filter publish (``pmin``/``pmax``, the
-  key set's gather), the overflow flags' ``pmax`` (``_combine_flags``),
-  the skew join's sample gather, the shuffle's size matrix and the laned
-  window's carries.  ``_laned_window`` is written once per shard as a
-  generator that yields each collective it needs; ``_lockstep`` runs
-  the shards' generators side by side and answers each yield with the
-  mesh's collective, so its code stays the reference's line for line.
+  apply.  That covers the runtime-filter publish
+  (``ops/runtime_filter.py``: ``pmin``/``pmax``, the key set's gather;
+  the run's filters live in its ``Diagnostics.rf``), the overflow flags'
+  ``pmax`` (``_combine_flags``), the skew join's sample gather, the
+  shuffle's size matrix and the laned window's carries.
+  ``_laned_window`` is written once per shard as a generator that yields
+  each collective it needs; ``_lockstep`` runs the shards' generators
+  side by side and answers each yield with the mesh's collective, so its
+  code stays the reference's line for line.
 
 Node ids follow the reference's DFS counter, so overflow keys
 (``Aggregation_3``, ``Exchange_5``) are the reference's.  The fused
@@ -46,18 +50,13 @@ import torch
 
 from ..core.block import Block, Column, as_dtype_bits, signed_bits
 from ..exchange.shuffle import allgather_block, shuffle_block
-from ..expr.compile import ExprEvaluator
-from ..ops import join as J
-from ..ops.aggregate import auto_passthrough_aggregate, hash_aggregate
-from ..ops.expand import expand_block
-from ..ops.sort import limit_block, sort_block, top_n
+from ..ops.runtime_filter import publish_runtime_filter
 from ..ops.window import window_block
 from ..plan import nodes as P
-from ..plan.compiler import eval_error_flags
+from ..plan.compiler import Diagnostics, apply_local, cte_block, flag_dict
 from .mesh import Mesh
 
 AXIS = "d"
-_BIG = 2 ** 62
 _I64_MAX = 2 ** 63 - 1
 _I64_MIN = -(2 ** 63)
 
@@ -147,96 +146,9 @@ class ExchangeConfig:
     shuffle_factor: float = 2.0
     capacities: Dict[int, int] = dataclasses.field(default_factory=dict)
     factors: Dict[int, float] = dataclasses.field(default_factory=dict)
-    # published runtime filters of one run: rf_id -> per local shard, a
-    # list of (min, max, sorted key set | None) per build key column
-    rf_values: Dict[str, list] = dataclasses.field(default_factory=dict)
     # the IN-set form is published only for builds at most this big
     rf_in_set_max_build: int = 1 << 20
     mode: str = "auto"
-
-
-def _publish_runtime_filter(node: P.Join, builds: Sequence[Block],
-                            rf_values: Dict[str, list], mesh: Optional[Mesh],
-                            in_set_max: int = 1 << 20) -> None:
-    """min/max of each (non-string, non-float) build key over live valid
-    rows and, for builds of at most ``in_set_max`` rows a shard, the
-    sorted key set (dead rows at 2^62), reduced and gathered across the
-    mesh when there is one.  ``builds`` holds one block per local shard
-    (one block without a mesh)."""
-    from ..runtime.metrics import METRICS
-
-    METRICS.counter("runtime_filters_published_total").inc()
-    n_local = len(builds)
-    per_shard: List[list] = [[] for _ in range(n_local)]
-    cap = builds[0].capacity
-
-    def local(b, kn):
-        c = b[kn]
-        ok = b.sel_mask() if c.validity is None else (b.sel_mask() & c.validity)
-        data = c.data.to(torch.int64)
-        big = torch.full_like(data, _BIG)
-        if data.shape[0] == 0:
-            e = torch.zeros((), dtype=torch.int64, device=data.device)
-            return e + _BIG, e - _BIG, big
-        return (torch.where(ok, data, big).min(), torch.where(ok, data, -big).max(),
-                torch.where(ok, data, big))
-
-    for kn in node.build_keys:
-        c0 = builds[0][kn]
-        if c0.dtype.is_string or c0.dtype.is_float:
-            for e in per_shard:
-                e.append(None)
-            continue
-        parts = (mesh.map(lambda b: local(b, kn), builds) if mesh is not None
-                 else [local(builds[0], kn)])
-        mns, mxs, keys = [p[0] for p in parts], [p[1] for p in parts], [p[2] for p in parts]
-        if mesh is not None:
-            mns, mxs = mesh.pmin(mns), mesh.pmax(mxs)
-        sets = [None] * n_local
-        if cap <= in_set_max:
-            if mesh is not None:
-                keys = mesh.all_gather_tiled(keys)  # the global membership set
-                sets = mesh.map(lambda k: torch.sort(k).values, keys)
-            else:
-                sets = [torch.sort(keys[0]).values]
-        for i in range(n_local):
-            per_shard[i].append((mns[i], mxs[i], sets[i]))
-    rf_values[node.rf_id] = per_shard
-
-
-def _apply_runtime_filter(node: P.RuntimeFilterApply, child: Block,
-                          entries: Optional[list]) -> Block:
-    """Narrow ``child``'s rows by one shard's published filter (a no-op
-    when none was published)."""
-    if entries is None:
-        return child
-    sel = child.sel_mask()
-    for kn, entry in zip(node.key_names, entries):
-        if entry is None:
-            continue
-        mn, mx, key_set = entry
-        c = child[kn]
-        data = c.data.to(torch.int64)
-        keep = (data >= mn) & (data <= mx)
-        if key_set is not None:
-            lo = torch.searchsorted(key_set, data)
-            hi = torch.searchsorted(key_set, data, right=True)
-            keep = keep & (hi > lo)
-        if c.validity is not None:
-            keep = keep & c.validity
-        sel = sel & keep
-    return child.with_sel(sel)
-
-
-def _drain_spmd_errors(per_shard: Sequence[Dict[str, torch.Tensor]],
-                       overflows: Dict[str, list]) -> None:
-    """Per-shard error flags ride the overflow dict under
-    ``RTERR_PREFIX`` (the runner's ``split_runtime_errors`` peels them)."""
-    from ..runtime.errors import RTERR_PREFIX
-
-    for errs in per_shard:
-        for msg, flag in errs.items():
-            overflows.setdefault(RTERR_PREFIX + msg, []).append(flag)
 
 
 def _put(overflows: Dict[str, list], key: str, values: Sequence) -> None:
@@ -251,14 +163,42 @@ def _scaled(cap: int, factor: float) -> int:
     return int(math.ceil(cap * factor))
 
 
+def _shard_filters(rf: Dict[str, list], mesh: Mesh) -> List[Dict[str, list]]:
+    """Each local shard's view of the run's published filters, its own
+    entry under each ``rf_id``.  A filter is global, so shards on one
+    device share one view and ``Mesh.map`` still runs a replicated input
+    once."""
+    views: dict = {}
+    return [views.setdefault(str(d), {k: [v[i]] for k, v in rf.items()})
+            for i, d in enumerate(mesh.devices)]
+
+
+def _map_local(node: P.PlanNode, nid: str, children: List[List[Block]], mesh: Mesh,
+               diag: Diagnostics, overflows: Dict[str, list]) -> List[Block]:
+    """The single-device local step (``plan/compiler.py:apply_local``) on
+    every shard, one ``Diagnostics`` each; its overflow and error flags
+    join ``overflows`` under the same keys, its row counts are dropped."""
+    def local(rf, *blocks):
+        d = Diagnostics({}, {}, rf=rf)
+        return apply_local(node, nid, list(blocks), d), flag_dict(d)
+
+    res = mesh.map(local, _shard_filters(diag.rf, mesh), *children)
+    for _, flags in res:
+        for k, v in flags.items():
+            _put(overflows, k, [v])
+    return [r[0] for r in res]
+
+
 def _exec_spmd_node(node: P.PlanNode, tables: Dict[str, List[Block]], mesh: Mesh,
-                    cfg: ExchangeConfig, overflows: Dict[str, list],
+                    cfg: ExchangeConfig, diag: Diagnostics, overflows: Dict[str, list],
                     ctr: List[int]) -> List[Block]:
+    """The mesh walk: scans, exchanges, collectives, the skew join, the
+    laned window and CTEs; every other node runs ``_map_local``."""
     ctr[0] += 1
     nid = f"{type(node).__name__}_{ctr[0]}"
 
     def run(n):
-        return _exec_spmd_node(n, tables, mesh, cfg, overflows, ctr)
+        return _exec_spmd_node(n, tables, mesh, cfg, diag, overflows, ctr)
 
     if isinstance(node, P.TableScan):
         shards = tables[node.table]
@@ -267,98 +207,12 @@ def _exec_spmd_node(node: P.PlanNode, tables: Dict[str, List[Block]], mesh: Mesh
             shards = mesh.map(lambda b: b.select(cols), shards)
         return shards
 
-    if isinstance(node, P.Selection):
-        def select(child):
-            ev = ExprEvaluator(child)
-            cond = ev.evaluate(node.cond)
-            errs = eval_error_flags(ev, child)
-            mask = cond.data.to(torch.bool)
-            if cond.validity is not None:
-                mask = mask & cond.validity
-            return child.and_sel(mask), errs
-
-        res = mesh.map(select, run(node.child))
-        _drain_spmd_errors([r[1] for r in res], overflows)
-        return [r[0] for r in res]
-
-    if isinstance(node, P.AddColumns):
-        def add(child):
-            ev = ExprEvaluator(child)
-            out = child
-            for name, e in node.exprs.items():
-                out = out.with_column(name, ev.evaluate(e))
-            return out, eval_error_flags(ev, child)
-
-        res = mesh.map(add, run(node.child))
-        _drain_spmd_errors([r[1] for r in res], overflows)
-        return [r[0] for r in res]
-
-    if isinstance(node, P.Projection):
-        def project(child):
-            ev = ExprEvaluator(child)
-            out = Block.from_dict({name: ev.evaluate(e)
-                                   for name, e in node.exprs.items()}, sel=child.sel)
-            return out, eval_error_flags(ev, child)
-
-        res = mesh.map(project, run(node.child))
-        _drain_spmd_errors([r[1] for r in res], overflows)
-        return [r[0] for r in res]
-
-    if isinstance(node, P.Aggregation):
-        def aggregate(child):
-            if node.mode == "auto":
-                r = auto_passthrough_aggregate(child, list(node.keys), list(node.aggs))
-            else:
-                r = hash_aggregate(child, list(node.keys), list(node.aggs),
-                                   node.num_slots)
-            return r.block, r.overflow
-
-        res = mesh.map(aggregate, run(node.child))
-        _put(overflows, nid, [r[1] for r in res])
-        return [r[0] for r in res]
-
-    if isinstance(node, P.Expand):
-        sets = [list(s) for s in node.grouping_sets]
-        return mesh.map(lambda c: expand_block(c, sets, node.gid_name), run(node.child))
-
-    if isinstance(node, P.CrossJoin):
-        probe = run(node.probe)
+    if isinstance(node, P.Join) and node.rf_id is not None:
+        # build first so its filter reaches the probe subtree
         build = run(node.build)
-        cap = node.output_capacity or _capacity(probe)
-        res = mesh.map(lambda p, b: J.cross_join(p, b, cap), probe, build)
-        _put(overflows, nid, [r[1] for r in res])
-        return [r[0] for r in res]
-
-    if isinstance(node, P.Join):
-        if node.rf_id is not None:
-            # build first so its filter reaches the probe subtree
-            build = run(node.build)
-            _publish_runtime_filter(node, build, cfg.rf_values, mesh,
-                                    cfg.rf_in_set_max_build)
-            probe = run(node.probe)
-        else:
-            probe = run(node.probe)
-            build = run(node.build)
-        cap = None if node.unique_build else (node.output_capacity or _capacity(probe))
-
-        def join(p, b):
-            out, extras = J.hash_join_with_tail(
-                p, b, list(node.probe_keys), list(node.build_keys),
-                kind=node.kind, output_capacity=cap)
-            return out, extras["overflow"]
-
-        res = mesh.map(join, probe, build)
-        _put(overflows, nid, [r[1] for r in res])
-        return [r[0] for r in res]
-
-    if isinstance(node, P.RuntimeFilterApply):
-        child = run(node.child)
-        entries = cfg.rf_values.get(node.rf_id)
-        if entries is None:
-            return child  # not published: no-op (the rf timeout analog)
-        idx = list(range(mesh.local_size))
-        return mesh.map(lambda c, i: _apply_runtime_filter(node, c, entries[i]),
-                        child, idx)
+        diag.rf[node.rf_id] = publish_runtime_filter(node.build_keys, build, mesh,
+                                                     diag.rf_in_set_max)
+        return _map_local(node, nid, [run(node.probe), build], mesh, diag, overflows)
 
     if isinstance(node, P.SkewShuffleJoin):
         from ..exchange.skew import skew_shuffle_join
@@ -383,48 +237,19 @@ def _exec_spmd_node(node: P.PlanNode, tables: Dict[str, List[Block]], mesh: Mesh
         _put(overflows, nid, ovs["skew_cold_join"] + ovs["skew_hot_join"])
         return out
 
-    if isinstance(node, P.TopN):
-        keys = list(node.sort_keys)
-        return mesh.map(lambda c: top_n(c, keys, node.limit), run(node.child))
-
-    if isinstance(node, P.Sort):
-        keys = list(node.sort_keys)
-        return mesh.map(lambda c: sort_block(c, keys), run(node.child))
-
-    if isinstance(node, P.Limit):
-        return mesh.map(lambda c: limit_block(c, node.limit), run(node.child))
-
-    if isinstance(node, P.Window):
-        return mesh.map(lambda c: window_block(c, list(node.partition_by),
-                                               list(node.order_by), list(node.funcs)),
-                        run(node.child))
-
     if isinstance(node, P.LanedWindow):
         child = run(node.child)
         return _lockstep(mesh, [_laned_window(c, node) for c in child])
 
-    if isinstance(node, P.Union):
-        from ..exchange.skew import concat_blocks
-
-        parts = [run(c) for c in node.children]
-
-        def union(*blocks):
-            out = blocks[0]
-            for b in blocks[1:]:
-                out = concat_blocks(out, b)
-            return out
-
-        return mesh.map(union, *parts)
-
     if isinstance(node, P.WithCTE):
         tables = dict(tables)
         for name, d in node.defs.items():
-            tables["__cte_" + name] = _exec_spmd_node(d, tables, mesh, cfg,
+            tables["__cte_" + name] = _exec_spmd_node(d, tables, mesh, cfg, diag,
                                                       overflows, ctr)
-        return _exec_spmd_node(node.child, tables, mesh, cfg, overflows, ctr)
+        return _exec_spmd_node(node.child, tables, mesh, cfg, diag, overflows, ctr)
 
     if isinstance(node, P.CTERef):
-        return tables["__cte_" + node.name]
+        return cte_block(tables, node.name)
 
     if isinstance(node, P.ExchangeReceiver):
         sender = node.source
@@ -447,7 +272,7 @@ def _exec_spmd_node(node: P.PlanNode, tables: Dict[str, List[Block]], mesh: Mesh
             return allgather_block(child, mesh)
         raise NotImplementedError(sender.exchange_type)
 
-    raise NotImplementedError(type(node).__name__)
+    return _map_local(node, nid, [run(c) for c in node.children], mesh, diag, overflows)
 
 
 def plan_distribution(node: P.PlanNode) -> str:
@@ -500,9 +325,8 @@ def compile_distributed(plan: P.PlanNode, mesh: Mesh,
 
     def run(tables: Dict[str, List[Block]]):
         overflows: Dict[str, list] = {}
-        cfg.rf_values.clear()  # a run's filters must not leak into the next
-        out = Shards(_exec_spmd_node(plan, tables, mesh, cfg, overflows, [0]))
-        cfg.rf_values.clear()
+        diag = Diagnostics({}, {}, rf_in_set_max=cfg.rf_in_set_max_build)
+        out = Shards(_exec_spmd_node(plan, tables, mesh, cfg, diag, overflows, [0]))
         if plan_distribution(plan) == "replicated":
             out = Shards(out[:1])
             out.replicated = True

@@ -10,7 +10,7 @@ CrossJoin runs its probe subtree, then its build subtree
 (``ops/join.py``; right and full outer joins append the unmatched build
 rows; a Join with an ``rf_id`` runs its build subtree first and
 publishes its runtime filter, which the probe subtree's
-``RuntimeFilterApply`` applies, ``mpp/runner.py``); a TopN runs
+``RuntimeFilterApply`` applies, ``ops/runtime_filter.py``); a TopN runs
 ``ops/sort.py:top_n``; a Window runs
 ``ops/window.py:window_block``, an Expand ``ops/expand.py:expand_block``,
 and a Union concatenates its children's rows in order
@@ -20,6 +20,11 @@ returns the same block.  Node ids are the reference's DFS pre-order ids,
 so overflow keys such as ``Join_5`` match.  Each node runs inside its
 span ``op.<NodeType>`` (``runtime/tracing.py:op_span``; nothing while
 tracing is off).
+
+The walk (``_run_node``) owns the order and the structure: node ids,
+spans, the order of the children, the fused path, scans and CTEs.  What
+a node does over its computed children is ``apply_local``, which the
+mesh runner (``mpp/runner.py``) also runs once per shard.
 
 The reference chooses the fused path by an environment knob; here it is
 the explicit ``fuse_stream_agg`` argument of ``compile_fragment``.
@@ -48,6 +53,7 @@ from ..exchange.skew import concat_blocks
 from ..ops.aggregate import auto_passthrough_aggregate, hash_aggregate
 from ..ops.expand import expand_block
 from ..ops.join import cross_join, hash_join_with_tail
+from ..ops.runtime_filter import apply_runtime_filter, publish_runtime_filter
 from ..ops.sort import limit_block, sort_block, top_n
 from ..ops.window import window_block
 from ..runtime import tracing
@@ -64,7 +70,8 @@ class Diagnostics:
     rows: Dict[str, torch.Tensor]
     # message -> 0-d bool flag: some live row hit a per-row EvalError
     errors: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
-    # published runtime filters: rf_id -> [per-key (min, max, set|None)]
+    # the run's published runtime filters: rf_id -> one list per local
+    # shard (one without a mesh) of per-key (min, max, set|None)
     rf: Dict[str, list] = dataclasses.field(default_factory=dict)
     rf_in_set_max: int = 1 << 20
 
@@ -79,25 +86,16 @@ def execute_plan(plan: P.PlanNode, tables: Dict[str, Block],
     return _exec_node(plan, tables, diag, [0], fuse_stream_agg)
 
 
-def eval_error_flags(ev: ExprEvaluator, block: Block) -> Dict[str, torch.Tensor]:
-    """An evaluator's per-row error masks folded into one flag per
-    message, masked to the block's live rows (the evaluator's list is
-    emptied)."""
-    out: Dict[str, torch.Tensor] = {}
+def _drain_eval_errors(ev: ExprEvaluator, block: Block, diag: Diagnostics) -> None:
+    """Fold the evaluator's per-row error masks into one flag per message
+    over the block's live rows (the evaluator's list is emptied)."""
     for mask, msg in ev.runtime_errors:
         if block.sel is not None:
             mask = mask & block.sel
         flag = torch.any(mask)
-        prev = out.get(msg)
-        out[msg] = flag if prev is None else (prev | flag)
-    ev.runtime_errors.clear()
-    return out
-
-
-def _drain_eval_errors(ev: ExprEvaluator, block: Block, diag: Diagnostics) -> None:
-    for msg, flag in eval_error_flags(ev, block).items():
         prev = diag.errors.get(msg)
         diag.errors[msg] = flag if prev is None else (prev | flag)
+    ev.runtime_errors.clear()
 
 
 def _exec_node(node: P.PlanNode, tables: Dict[str, Block], diag: Diagnostics,
@@ -111,6 +109,8 @@ def _exec_node(node: P.PlanNode, tables: Dict[str, Block], diag: Diagnostics,
 
 def _run_node(node: P.PlanNode, nid: str, tables: Dict[str, Block], diag: Diagnostics,
               ctr: List[int], fuse: bool) -> Block:
+    """The walk: scans, CTEs, the fused aggregation and the order of the
+    children; every other node's own work is ``apply_local``."""
     def child_of(n):
         return _exec_node(n, tables, diag, ctr, fuse)
 
@@ -121,20 +121,58 @@ def _run_node(node: P.PlanNode, nid: str, tables: Dict[str, Block], diag: Diagno
         diag.rows[nid] = block.num_rows()
         return block
 
-    if isinstance(node, P.Selection):
-        child = child_of(node.child)
-        ev = ExprEvaluator(child)
-        cond = ev.evaluate(node.cond)
-        _drain_eval_errors(ev, child, diag)
-        mask = cond.data.to(torch.bool)
-        if cond.validity is not None:
-            mask = mask & cond.validity  # NULL condition == not selected
-        out = child.and_sel(mask)
-        diag.rows[nid] = out.num_rows()
-        return out
+    if isinstance(node, P.WithCTE):
+        tables = dict(tables)
+        for name, d in node.defs.items():
+            tables["__cte_" + name] = _exec_node(d, tables, diag, ctr, fuse)
+        return _exec_node(node.child, tables, diag, ctr, fuse)
 
+    if isinstance(node, P.CTERef):
+        return cte_block(tables, node.name)
+
+    if isinstance(node, (P.ExchangeSender, P.ExchangeReceiver)):
+        raise ValueError(
+            "exchange nodes mark fragment boundaries: run the plan through "
+            "mpp.runner, not the single-fragment compiler")
+
+    if fuse and isinstance(node, P.Aggregation):
+        from ..ops.stream_fuse import try_fuse_stream_agg
+
+        res = try_fuse_stream_agg(node, tables)
+        if res is not None:
+            diag.overflows[nid] = res.overflow
+            diag.rows[nid] = res.num_groups
+            return res.block
+
+    if isinstance(node, P.Join) and node.rf_id is not None:
+        # build first, so its filter reaches the probe subtree
+        build = child_of(node.build)
+        diag.rf[node.rf_id] = publish_runtime_filter(
+            node.build_keys, [build], in_set_max=diag.rf_in_set_max)
+        children = [child_of(node.probe), build]
+    else:
+        # probe first, then build: the DFS pre-order ids of the reference
+        children = [child_of(c) for c in node.children]
+    return apply_local(node, nid, children, diag)
+
+
+def cte_block(tables: Dict, name: str):
+    """The block a WithCTE defined under ``name``."""
+    try:
+        return tables["__cte_" + name]
+    except KeyError:
+        raise KeyError(f"CTE {name!r} not defined by an enclosing WithCTE") from None
+
+
+def apply_local(node: P.PlanNode, nid: str, children: List[Block],
+                diag: Diagnostics) -> Block:
+    """One node's own work over its children's blocks (probe before
+    build), on one device or on one shard of a mesh: records the node's
+    overflow flag, evaluation-error flags and live rows in ``diag``, and
+    reads a published runtime filter from ``diag.rf`` (its first entry:
+    the one shard's)."""
+    child = children[0] if children else None
     if isinstance(node, P.AddColumns):
-        child = child_of(node.child)
         ev = ExprEvaluator(child)
         out = child
         for name, e in node.exprs.items():
@@ -142,8 +180,26 @@ def _run_node(node: P.PlanNode, nid: str, tables: Dict[str, Block], diag: Diagno
         _drain_eval_errors(ev, child, diag)
         return out
 
-    if isinstance(node, P.Projection):
-        child = child_of(node.child)
+    if isinstance(node, P.Aggregation):
+        # "partial" and "final" are tags: both run the method dispatch
+        if node.mode == "auto":
+            res = auto_passthrough_aggregate(child, list(node.keys), list(node.aggs))
+        else:
+            res = hash_aggregate(child, list(node.keys), list(node.aggs),
+                                 node.num_slots)
+        diag.overflows[nid] = res.overflow
+        diag.rows[nid] = res.num_groups
+        return res.block
+
+    if isinstance(node, P.Selection):
+        ev = ExprEvaluator(child)
+        cond = ev.evaluate(node.cond)
+        _drain_eval_errors(ev, child, diag)
+        mask = cond.data.to(torch.bool)
+        if cond.validity is not None:
+            mask = mask & cond.validity  # NULL condition == not selected
+        out = child.and_sel(mask)
+    elif isinstance(node, P.Projection):
         ev = ExprEvaluator(child)
         cols = {name: ev.evaluate(e) for name, e in node.exprs.items()}
         _drain_eval_errors(ev, child, diag)
@@ -163,126 +219,42 @@ def _run_node(node: P.PlanNode, nid: str, tables: Dict[str, Block], diag: Diagno
                 kept.append(rename[k])
             if kept:
                 out = dataclasses.replace(out, clustered_by=tuple(kept))
-        diag.rows[nid] = out.num_rows()
-        return out
-
-    if isinstance(node, P.Aggregation):
-        if fuse:
-            from ..ops.stream_fuse import try_fuse_stream_agg
-
-            res = try_fuse_stream_agg(node, tables)
-            if res is not None:
-                diag.overflows[nid] = res.overflow
-                diag.rows[nid] = res.num_groups
-                return res.block
-        child = child_of(node.child)
-        # "partial" and "final" are tags: both run the method dispatch
-        if node.mode == "auto":
-            res = auto_passthrough_aggregate(child, list(node.keys), list(node.aggs))
-        else:
-            res = hash_aggregate(child, list(node.keys), list(node.aggs),
-                                 node.num_slots)
-        diag.overflows[nid] = res.overflow
-        diag.rows[nid] = res.num_groups
-        return res.block
-
-    if isinstance(node, P.Join):
-        if node.rf_id is not None:
-            from ..mpp.runner import _publish_runtime_filter
-
-            # build first, so its filter reaches the probe subtree
-            build = child_of(node.build)
-            _publish_runtime_filter(node, [build], diag.rf, None, diag.rf_in_set_max)
-            probe = child_of(node.probe)
-        else:
-            # probe first, then build: the DFS pre-order ids of the reference
-            probe = child_of(node.probe)
-            build = child_of(node.build)
+    elif isinstance(node, P.Join):
+        probe, build = children
         cap = None if node.unique_build else (node.output_capacity
                                               or probe.capacity)
-        joined, extras = hash_join_with_tail(
+        out, extras = hash_join_with_tail(
             probe, build, list(node.probe_keys), list(node.build_keys),
             kind=node.kind, output_capacity=cap,
             build_payload=node.build_payload)
         diag.overflows[nid] = extras["overflow"]
-        diag.rows[nid] = joined.num_rows()
-        return joined
-
-    if isinstance(node, P.RuntimeFilterApply):
-        from ..mpp.runner import _apply_runtime_filter
-
-        child = child_of(node.child)
+    elif isinstance(node, P.CrossJoin):
+        probe, build = children
+        out, diag.overflows[nid] = cross_join(probe, build,
+                                              node.output_capacity or probe.capacity)
+    elif isinstance(node, P.RuntimeFilterApply):
         entries = diag.rf.get(node.rf_id)
-        out = _apply_runtime_filter(node, child, None if entries is None else entries[0])
-        diag.rows[nid] = out.num_rows()
-        return out
-
-    if isinstance(node, P.Expand):
-        child = child_of(node.child)
+        out = apply_runtime_filter(child, node.key_names,
+                                   None if entries is None else entries[0])
+    elif isinstance(node, P.Expand):
         out = expand_block(child, [list(s) for s in node.grouping_sets], node.gid_name)
-        diag.rows[nid] = out.num_rows()
-        return out
-
-    if isinstance(node, P.Window):
-        child = child_of(node.child)
+    elif isinstance(node, P.Window):
         out = window_block(child, list(node.partition_by), list(node.order_by),
                            list(node.funcs))
-        diag.rows[nid] = out.num_rows()
-        return out
-
-    if isinstance(node, P.Union):
-        parts = [child_of(c) for c in node.children]
-        out = parts[0]
-        for p in parts[1:]:
+    elif isinstance(node, P.Union):
+        out = children[0]
+        for p in children[1:]:
             out = concat_blocks(out, p)
-        diag.rows[nid] = out.num_rows()
-        return out
-
-    if isinstance(node, P.CrossJoin):
-        probe = child_of(node.probe)
-        build = child_of(node.build)
-        out, needed = cross_join(probe, build, node.output_capacity or probe.capacity)
-        diag.overflows[nid] = needed
-        diag.rows[nid] = out.num_rows()
-        return out
-
-    if isinstance(node, P.WithCTE):
-        tables = dict(tables)
-        for name, d in node.defs.items():
-            tables["__cte_" + name] = _exec_node(d, tables, diag, ctr, fuse)
-        return _exec_node(node.child, tables, diag, ctr, fuse)
-
-    if isinstance(node, P.CTERef):
-        try:
-            return tables["__cte_" + node.name]
-        except KeyError:
-            raise KeyError(f"CTE {node.name!r} not defined by an enclosing "
-                           "WithCTE") from None
-
-    if isinstance(node, P.TopN):
-        child = child_of(node.child)
+    elif isinstance(node, P.TopN):
         out = top_n(child, list(node.sort_keys), node.limit)
-        diag.rows[nid] = out.num_rows()
-        return out
-
-    if isinstance(node, P.Sort):
-        child = child_of(node.child)
+    elif isinstance(node, P.Sort):
         out = sort_block(child, list(node.sort_keys))
-        diag.rows[nid] = out.num_rows()
-        return out
-
-    if isinstance(node, P.Limit):
-        child = child_of(node.child)
+    elif isinstance(node, P.Limit):
         out = limit_block(child, node.limit)
-        diag.rows[nid] = out.num_rows()
-        return out
-
-    if isinstance(node, (P.ExchangeSender, P.ExchangeReceiver)):
-        raise ValueError(
-            "exchange nodes mark fragment boundaries: run the plan through "
-            "mpp.runner, not the single-fragment compiler")
-
-    raise NotImplementedError(f"plan node {type(node).__name__}")
+    else:
+        raise NotImplementedError(f"plan node {type(node).__name__}")
+    diag.rows[nid] = out.num_rows()
+    return out
 
 
 def compile_fragment(
@@ -314,5 +286,5 @@ def flag_dict(diag: Diagnostics) -> Dict[str, torch.Tensor]:
     return flags
 
 
-__all__ = ["execute_plan", "compile_fragment", "Diagnostics", "flag_dict",
-           "eval_error_flags"]
+__all__ = ["execute_plan", "apply_local", "cte_block", "compile_fragment",
+           "Diagnostics", "flag_dict"]

@@ -942,7 +942,7 @@ def run_grace_join(plan: P.PlanNode, tables: Dict[str, Block],
         if "Exchange" not in plan.pretty():
             dplan = distribute_for_tables(plan, tables, mesh.size)
         cfg = ExchangeConfig() if cfg is None else dataclasses.replace(
-            cfg, capacities={}, factors={}, rf_values={})
+            cfg, capacities={}, factors={})
         dist_fn = compile_distributed(dplan, mesh, cfg=cfg)
 
         def fn(sub):
