@@ -4,7 +4,10 @@
 
 Builds the port's CUDA kernels from ``tiflash_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once): the planes kernel ``stream_agg.cu``,
-``direct_agg.cu``, and the fused scan kernels that ``stream_tile.cu.in``
+``direct_agg.cu``, the unique join's dense probe ``join_probe.cu``
+(``join_probe_phase``: SSB's date, customer and part joins over a
+60,010,680-slot probe, dense == sorted per tensor, kernel == plain,
+timed against its byte bound and the sorted join), and the fused scan kernels that ``stream_tile.cu.in``
 generates per plan for the run's fused aggregations (Q1, Q6 and the fuse
 cases of ``tiflash_tpu_torch/testing/fuse_cases.py``, whose programs the
 CPU reference runs give); and the disk spill tier
@@ -1266,6 +1269,144 @@ def yardstick_line(name: str, y: dict, card: str) -> str:
             f"{y['all_dead_ms']:.4f} ms; L2 flushed before each run [{card}]")
 
 
+SSB_PROBE_ROWS = 60_010_680   # lineorder's capacity at SF10
+
+
+def ssb_date_keys():
+    """SSB's d_datekey values, 1992-01-01 to 1998-12-30 as yyyymmdd."""
+    start = datetime.date(1992, 1, 1)
+    return [int((start + datetime.timedelta(days=d)).strftime("%Y%m%d"))
+            for d in range(2556)]
+
+
+def ssb_join_inputs():
+    """SSB's dimension joins at SF10's shapes, made on the card from the
+    seed: {name: (probe block, build block, payload columns)}.  A
+    60,010,680-slot int32 probe key ``lo_key`` against ``k`` of the date
+    build (2,556 rows, span 61,130, every row live, 2 payload columns, a
+    probe selection of about 1 in 5 as after earlier joins), customer
+    (300,000 rows, 1 in 5 live as under a region filter, 2 columns, no
+    probe selection: the first join) and part (800,000 rows, 2 in 5 live,
+    1 column, a probe selection); payload columns ``b0``, ``b1``."""
+    import torch
+
+    from tiflash_tpu_torch.core import dtypes as dt
+    from tiflash_tpu_torch.core.block import Block, Column
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    n = SSB_PROBE_ROWS
+
+    def ints(lo, hi, size):
+        return torch.randint(lo, hi, (size,), generator=g, device="cuda", dtype=torch.int32)
+
+    def share(frac, size):
+        return torch.rand(size, generator=g, device="cuda") < frac
+
+    def col(data):
+        return Column(data, None, dt.INT32, stats=(int(data.min()), int(data.max())))
+
+    shapes = {"date": (torch.tensor(ssb_date_keys(), dtype=torch.int32, device="cuda"),
+                       2, None, 0.2),
+              "customer": (torch.arange(1, 300_001, dtype=torch.int32, device="cuda"),
+                           2, 0.2, None),
+              "part": (torch.arange(1, 800_001, dtype=torch.int32, device="cuda"),
+                       1, 0.4, 0.4)}
+    out = {}
+    for name, (bkeys, n_cols, build_live, probe_live) in shapes.items():
+        m = bkeys.shape[0]
+        build = Block.from_dict(
+            {"k": col(bkeys), **{f"b{c}": col(ints(0, 1000, m)) for c in range(n_cols)}},
+            sel=None if build_live is None else share(build_live, m))
+        pkeys = bkeys[torch.randint(0, m, (n,), generator=g, device="cuda")]
+        probe = Block.from_dict({"lo_key": col(pkeys), "lo_revenue": col(ints(0, 10 ** 6, n))},
+                                sel=None if probe_live is None else share(probe_live, n))
+        out[name] = (probe, build, n_cols)
+    return out
+
+
+def join_probe_args(probe, build, n_cols) -> tuple:
+    """The arguments ``probe_join_dense`` hands ``join_probe`` for an
+    inner join of ``ssb_join_inputs``' blocks."""
+    from tiflash_tpu_torch.ops import join as J
+
+    lo, span = J.dense_key_span([probe["lo_key"]], [build["k"]])
+    jb = J.build_join_dense(build, build["k"], lo, span)
+    return (probe["lo_key"].data, None, probe.sel, jb.table, lo, jb.perm,
+            build.capacity <= probe.capacity,
+            [(build[f"b{c}"].data, None) for c in range(n_cols)], False)
+
+
+def join_probe_phase(card: str, flush) -> dict:
+    """SSB's dimension joins at SF10's shapes on the card
+    (``ssb_join_inputs``).  Each: the whole ``hash_join`` on the dense
+    method equals the sorted method tensor for tensor (rule taken away)
+    and launches the kernel once; the kernel equals its plain version at
+    its own call; timed (CUDA events, median of ``KERNEL_REPS``, L2
+    flushed): the kernel and plain in turns, the whole join on each
+    method, and the byte bound (``join_probe.probe_bytes`` over 3.35
+    TB/s)."""
+    import torch
+
+    from tiflash_tpu_torch.ops import join as J
+    from tiflash_tpu_torch.ops.cuda import join_probe as JP
+
+    out = {}
+    for name, (probe, build, n_cols) in ssb_join_inputs().items():
+        n, m = probe.capacity, build.capacity
+
+        def dense():
+            return J.hash_join(probe, build, ["lo_key"], ["k"])
+
+        def by_sort():
+            rule = J.dense_key_span
+            J.dense_key_span = lambda *a: None
+            try:
+                return J.hash_join(probe, build, ["lo_key"], ["k"])
+            finally:
+                J.dense_key_span = rule
+
+        JP.LAUNCHES = 0
+        got, gx = dense()
+        torch.cuda.synchronize()
+        launches = JP.LAUNCHES
+        want, wx = by_sort()
+        same = [torch.equal(a, b) for a, b in
+                [(got.sel, want.sel), (gx["matched_flags"], wx["matched_flags"]),
+                 (gx["overflow"], wx["overflow"])]
+                + [(a.data, b.data) for a, b in zip(got.columns, want.columns)]
+                + [(a.validity, b.validity) for a, b in zip(got.columns, want.columns)
+                   if a.validity is not None or b.validity is not None]]
+        if launches != 1 or not all(same) or got.names != want.names:
+            raise AssertionError(f"join_probe {name}: {launches} launches, dense == sorted "
+                                 f"per tensor {same}")
+        del got, want, gx, wx
+        args = join_probe_args(probe, build, n_cols)
+        k_out, p_out = JP.join_probe(*args), JP.join_probe_plain(*args)
+        pairs = [(k_out[0], p_out[0]), (k_out[2], p_out[2])] + [
+            (a, b) for ka, pa in zip(k_out[3], p_out[3]) for a, b in zip(ka, pa)]
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"join_probe {name}: kernel != plain")
+        matched = int(k_out[0].sum())
+        del k_out, p_out, pairs
+        p_ms, k_ms = time_turns(lambda: JP.join_probe_plain(*args),
+                                lambda: JP.join_probe(*args), KERNEL_REPS, flush)
+        sorted_ms, dense_ms = time_turns(by_sort, dense, KERNEL_REPS, flush)
+        n_bytes = JP.probe_bytes(n, 4, probe.sel is not None, False, [4] * n_cols)
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        out[name] = {"rows": n, "build_rows": m, "span": int(args[3].shape[0]),
+                     "columns": n_cols, "matched": matched, "launches": launches,
+                     "max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                     "bound_bytes": n_bytes, "share_of_bound": bound_ms / k_ms,
+                     "dense_join_ms": dense_ms, "sorted_join_ms": sorted_ms}
+        print(f"join_probe {name}: {n} probe slots ({matched} matched) x {m} build rows "
+              f"(span {out[name]['span']}), {n_cols} payload columns: kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms ({n_bytes} B at 3.35 TB/s), "
+              f"share of bound {bound_ms / k_ms:.1%}; whole hash_join dense {dense_ms:.4f} "
+              f"ms, sorted {sorted_ms:.4f} ms; dense == sorted per tensor, kernel == plain; "
+              f"L2 flushed before each run [{card}]")
+    return out
+
+
 def eight_table_queries() -> list:
     """(name, plan function) of the eight-table phase, in the order run:
     the fifteen TPC-H queries of the slice and Q18 at TPC-H's threshold."""
@@ -1283,10 +1424,35 @@ NUMPY8 = {"q2": numpy_q2, "q9": numpy_q9, "q13": numpy_q13, "q14": numpy_q14,
           "q16": numpy_q16, "q18_300": numpy_q18}
 
 
+def join_probe_spy(run) -> tuple:
+    """(``run()``'s result, the join_probe launches its dense joins make
+    on the card).  On the CPU ``join_probe`` runs its plain version; each
+    call counts the launches the kernel takes for it: one per
+    ``MAX_COLUMNS`` payload columns, none over an empty probe."""
+    from tiflash_tpu_torch.ops.cuda import join_probe as JP
+
+    launches = []
+    real = JP.join_probe
+
+    def spy(keys, key_valid, sel, table, lo, perm, gather_sorted, columns, want_bidx):
+        launches.append(0 if keys.shape[0] == 0
+                        else len(range(0, max(1, len(columns)), JP.MAX_COLUMNS)))
+        return real(keys, key_valid, sel, table, lo, perm, gather_sorted, columns,
+                    want_bidx)
+
+    JP.join_probe = spy
+    try:
+        out = run()
+    finally:
+        JP.join_probe = real
+    return out, sum(launches)
+
+
 def cpu_run_with_spy(plan, tables):
     """One ``run_query`` on the CPU with a spy on the direct_agg kernel's
-    branch and on the fused path, which launch a kernel on the card.
-    Returns (block_result, retries, (branch calls, fused runs))."""
+    branch, on the fused path and on the dense joins' probe, which launch
+    a kernel on the card.  Returns (block_result, retries, (branch calls,
+    fused runs, join_probe launches))."""
     from tiflash_tpu_torch.ops import aggregate as TA
     from tiflash_tpu_torch.ops import stream_fuse as SF_
     from tiflash_tpu_torch.runtime.executor import run_query
@@ -1296,47 +1462,52 @@ def cpu_run_with_spy(plan, tables):
     TA._accumulate_direct_kernel = lambda *a: calls.append(1) or real_branch(*a)
     f0 = SF_.FUSE_STATS["count"]
     try:
-        out, summary = run_query(plan, tables)
+        (out, summary), joins = join_probe_spy(lambda: run_query(plan, tables))
     finally:
         TA._accumulate_direct_kernel = real_branch
     return (block_result(out), summary.retries,
-            (len(calls), SF_.FUSE_STATS["count"] - f0))
+            (len(calls), SF_.FUSE_STATS["count"] - f0, joins))
 
 
 def card_run_checked(name: str, plan, tables, cpu_result, cpu_retries: int,
                      predicted) -> tuple:
     """One ``run_query`` on the card: it must launch the kernels the CPU
     dispatch predicts (a fused run launches the generated stream_tile
-    kernel, never the planes kernel), take the CPU run's retries and equal
-    its result.  Returns (result, summary, direct_agg launches, stream_tile
-    launches)."""
+    kernel, never the planes kernel; the dense joins exactly the
+    join_probe launches the CPU run's calls take, counted from 0 just
+    before), take the CPU run's retries and equal its result.  Returns
+    (result, summary, direct_agg launches, stream_tile launches,
+    join_probe launches)."""
     import torch
 
     from tiflash_tpu_torch.ops import stream_fuse as SF_
-    from tiflash_tpu_torch.ops.cuda import direct_agg as DA, stream_agg as SA
-    from tiflash_tpu_torch.ops.cuda import stream_tile as ST
+    from tiflash_tpu_torch.ops.cuda import direct_agg as DA, join_probe as JP
+    from tiflash_tpu_torch.ops.cuda import stream_agg as SA, stream_tile as ST
     from tiflash_tpu_torch.runtime.executor import run_query
 
     d0, s0, p0, f0 = DA.LAUNCHES, ST.LAUNCHES, SA.LAUNCHES, SF_.FUSE_STATS["count"]
+    JP.LAUNCHES = 0
     out, summary = run_query(plan, tables)
     torch.cuda.synchronize()
-    direct, stream, fused = (DA.LAUNCHES - d0, ST.LAUNCHES - s0,
-                             SF_.FUSE_STATS["count"] - f0)
-    want_branch, want_fused = predicted
+    direct, stream, fused, joins = (DA.LAUNCHES - d0, ST.LAUNCHES - s0,
+                                    SF_.FUSE_STATS["count"] - f0, JP.LAUNCHES)
+    want_branch, want_fused, want_joins = predicted
     if ((direct > 0) != (want_branch > 0) or fused != want_fused
-            or (stream > 0) != (want_fused > 0) or SA.LAUNCHES != p0):
+            or (stream > 0) != (want_fused > 0) or SA.LAUNCHES != p0
+            or joins != want_joins):
         raise AssertionError(
             f"{name}: direct_agg launches {direct}, stream_tile launches {stream}, "
             f"planes kernel launches {SA.LAUNCHES - p0}, "
-            f"fused runs {fused}; the CPU dispatch predicts {want_branch} "
-            f"direct_agg branch calls and {want_fused} fused runs")
+            f"fused runs {fused}, join_probe launches {joins}; the CPU dispatch predicts "
+            f"{want_branch} direct_agg branch calls, {want_fused} fused runs and "
+            f"{want_joins} join_probe launches")
     if summary.device != "cuda:0" or summary.retries != cpu_retries:
         raise AssertionError(f"{name}: ran on {summary.device} with "
                              f"{summary.retries} retries (CPU: {cpu_retries})")
     got = block_result(out)
     if got != cpu_result:
         raise AssertionError(f"{name}: cuda result != cpu result\n{got}\n{cpu_result}")
-    return got, summary, direct, stream
+    return got, summary, direct, stream, joins
 
 
 def eight_table_phase(card: str, sf: float = SF):
@@ -1344,8 +1515,9 @@ def eight_table_phase(card: str, sf: float = SF):
     through ``run_query`` on the CPU (with a spy on the two kernels'
     branches), then on the card, bit-exact against the CPU run, six also
     against numpy; the card's launches must equal what the CPU dispatch
-    predicts (none).  Prints each query's warm ``run_query`` median.
-    Returns the catalog, its card tables and the CPU results."""
+    predicts.  Prints each query's warm ``run_query`` median.  Returns
+    the catalog, its card tables, the CPU results and each query's
+    join_probe launches."""
     import torch
 
     from tiflash_tpu_torch.ops.cuda import direct_agg as DA, stream_agg as SA
@@ -1380,13 +1552,15 @@ def eight_table_phase(card: str, sf: float = SF):
     gpu8 = cat8.blocks("cuda")
     torch.cuda.synchronize()
     SA.LAUNCHES = DA.LAUNCHES = ST.LAUNCHES = 0
+    joins = {}
     for name, plan_fn in queries:
-        got, summary, direct, stream = card_run_checked(
+        got, summary, direct, stream, joins[name] = card_run_checked(
             name, plan_fn(), gpu8, cpu8[name], cpu_retries[name], predicted[name])
         checked = " and numpy" if name in NUMPY8 else ""
         print(f"{name} sf{sf} on cuda: {summary.result_rows} rows, {summary.retries} "
               f"retries {summary.overflow_nodes}, direct_agg launches {direct}, "
-              f"stream_tile launches {stream}, bit-exact vs port CPU run{checked}")
+              f"stream_tile launches {stream}, join_probe launches {joins[name]} "
+              f"(as the CPU run's dense joins predict), bit-exact vs port CPU run{checked}")
         if name in ("q13", "q14", "q18_300"):
             print(f"  {name} rows: {got[0]}")
     for name, plan_fn in queries:
@@ -1394,7 +1568,7 @@ def eight_table_phase(card: str, sf: float = SF):
         q_ms = time_ms(lambda: run_query(plan, gpu8), WARM_RUNS)
         print(f"{name} sf{sf} run_query median {q_ms:.3f} ms over {WARM_RUNS} warm "
               f"runs, {cpu_retries[name]} retries each [{card}]")
-    return cat8, gpu8, cpu8
+    return cat8, gpu8, cpu8, joins
 
 
 SPEC_RUNS = 5
@@ -1411,7 +1585,8 @@ def spec_phase(card: str, names, cpu_tables, gpu_tables, builder_cpu: dict,
     card: its rows must equal its CPU run's (``builder_cpu``, held to numpy
     elsewhere; filled here where missing), and the spec rows must equal
     them where the quantity is the same.  Prints each spec query's
-    ``run_query`` median beside its builder's and whether it fused."""
+    ``run_query`` median beside its builder's and whether it fused.
+    Returns each spec query's join_probe launches."""
     import torch
 
     from tiflash_tpu_torch.bench.tpch_spec import SPEC_QUERIES
@@ -1428,10 +1603,11 @@ def spec_phase(card: str, names, cpu_tables, gpu_tables, builder_cpu: dict,
             builder_cpu[name] = block_result(run_query(builder(), cpu_tables)[0])
     torch.cuda.synchronize()
     SA.LAUNCHES = DA.LAUNCHES = ST.LAUNCHES = 0
+    joins = {}
     for name in names:
         spec, _, _ = SPEC_QUERIES[name]
-        card_run_checked(f"{name}_spec", spec(), gpu_tables, cpu[name],
-                         retries[name], predicted[name])
+        joins[name] = card_run_checked(f"{name}_spec", spec(), gpu_tables, cpu[name],
+                                       retries[name], predicted[name])[4]
     launches = (ST.LAUNCHES, DA.LAUNCHES)
     for name in names:
         spec, builder, same = SPEC_QUERIES[name]
@@ -1454,8 +1630,9 @@ def spec_phase(card: str, names, cpu_tables, gpu_tables, builder_cpu: dict,
         if name in ("q8", "q12", "q14"):
             print(f"  {name} spec rows: {cpu[name][0]}")
     print(f"spec-form {', '.join(names)}: stream_tile launches {launches[0]}, "
-          f"direct_agg launches {launches[1]} (as the CPU dispatch predicts: "
-          f"{[predicted[n] for n in names]})")
+          f"direct_agg launches {launches[1]}, join_probe launches {joins} (as the CPU "
+          f"dispatch predicts: {[predicted[n] for n in names]})")
+    return joins
 
 
 def _ulp_key(t):
@@ -4513,8 +4690,8 @@ def _main(analytic_cpu, mesh_cpu) -> int:
         q22_plan, sort_topn_plan, topn_100m_block, topn_100m_plan)
     from tiflash_tpu_torch.ops import stream_fuse as SF_
     from tiflash_tpu_torch.ops import tile_program as TP
-    from tiflash_tpu_torch.ops.cuda import build, direct_agg as DA, stream_agg as SA
-    from tiflash_tpu_torch.ops.cuda import stream_tile as ST
+    from tiflash_tpu_torch.ops.cuda import build, direct_agg as DA, join_probe as JP
+    from tiflash_tpu_torch.ops.cuda import stream_agg as SA, stream_tile as ST
     from tiflash_tpu_torch.runtime.executor import run_query
     from tiflash_tpu_torch.storage.catalog import blocks_from_numpy
     from tiflash_tpu_torch.storage.tpch import generate_tpch
@@ -4567,7 +4744,7 @@ def _main(analytic_cpu, mesh_cpu) -> int:
           f"cpu ({time.perf_counter() - t0:.1f} s)")
 
     # ---- 2. build: one nvcc per source, all at once --------------------------
-    kernels = ("stream_agg", "direct_agg")
+    kernels = ("stream_agg", "direct_agg", "join_probe")
     generated = list(dict.fromkeys(sources.values()))
     t0 = time.perf_counter()
     build.build_libraries(kernels, generated=generated)
@@ -4596,8 +4773,11 @@ def _main(analytic_cpu, mesh_cpu) -> int:
         + f" rows in {time.perf_counter() - t0:.1f} s")
     q7_plans = (("q7", q7_plan), ("q7_pairs", q7_nation_pairs_plan))
     t0 = time.perf_counter()
-    cpu7 = {name: block_result(run_query(plan_fn(), cat7.blocks("cpu"))[0])
-            for name, plan_fn in q7_plans}
+    cpu7, joins7 = {}, {}
+    for name, plan_fn in q7_plans:
+        out, joins7[name] = join_probe_spy(
+            lambda: run_query(plan_fn(), cat7.blocks("cpu"))[0])
+        cpu7[name] = block_result(out)
     a7 = q7_arrays(cat7)
     np7 = {"q7": numpy_q7(a7), "q7_pairs": numpy_q7_pairs(a7)}
     for name, _ in q7_plans:
@@ -4612,6 +4792,9 @@ def _main(analytic_cpu, mesh_cpu) -> int:
     direct_err = check_direct_agg(DA, cat7["lineitem"].row_count)
     tile_err = check_stream_tile(SA, ST, tile_cases)
     del tile_cases
+
+    # ---- 3b. the position table's probe at SSB's dimension joins, SF10 shapes --
+    join_y = join_probe_phase(card, L2Flush())
 
     # ---- 4. Q1 and Q6 at SF1 on the card: one generated launch each ------------
     gpu_tables = cat.blocks("cuda")
@@ -4707,8 +4890,8 @@ def _main(analytic_cpu, mesh_cpu) -> int:
           f"build ({n_built} libraries built or loaded in this process)")
 
     # ---- 4b. spec-form Q1 and Q6, and the function sweep, on lineitem ----
-    spec_phase(card, ("q1", "q6"), cpu_tables, gpu_tables,
-               {"q1": cpu_res["q1"], "q6": cpu_res["q6"]})
+    spec_joins = spec_phase(card, ("q1", "q6"), cpu_tables, gpu_tables,
+                            {"q1": cpu_res["q1"], "q6": cpu_res["q6"]})
     sweep_phase(card, cpu_tables, gpu_tables)
     ship = string_phase(card, cpu_tables, gpu_tables, li)
     runtime_controls_phase(card, cpu_tables, gpu_tables)
@@ -4732,11 +4915,15 @@ def _main(analytic_cpu, mesh_cpu) -> int:
     direct_per_query = {}
     for name, plan_fn in q7_plans:
         d0 = DA.LAUNCHES
+        JP.LAUNCHES = 0
         out, summary = run_query(plan_fn(), gpu7)
         torch.cuda.synchronize()
         direct_per_query[name] = DA.LAUNCHES - d0
         if SA.LAUNCHES or ST.LAUNCHES:
             raise AssertionError(f"{name}: launched a stream_agg kernel")
+        if JP.LAUNCHES != joins7[name]:
+            raise AssertionError(f"{name}: {JP.LAUNCHES} join_probe launches, the CPU "
+                                 f"run's dense joins predict {joins7[name]}")
         if summary.device != "cuda:0" or summary.retries:
             raise AssertionError(f"{name}: ran on {summary.device} with "
                                  f"{summary.retries} retries")
@@ -4746,7 +4933,8 @@ def _main(analytic_cpu, mesh_cpu) -> int:
         if got[0] != np7[name]:
             raise AssertionError(f"{name}: cuda result != numpy")
         print(f"{name} sf{SF} on cuda: {summary.result_rows} groups, direct_agg "
-              f"launches {direct_per_query[name]}, bit-exact vs port CPU run and numpy")
+              f"launches {direct_per_query[name]}, join_probe launches {JP.LAUNCHES} (as "
+              f"predicted), bit-exact vs port CPU run and numpy")
         if name == "q7":
             print(f"  q7 rows: {got[0]}")
     q7_launches = DA.LAUNCHES
@@ -4793,9 +4981,11 @@ def _main(analytic_cpu, mesh_cpu) -> int:
               ("q4", q4_plan, "three"), ("q22", q22_plan, "three"),
               ("topn", lambda: sort_topn_plan(TOPN_LIMIT), "lineitem"))
     t0 = time.perf_counter()
-    cpu3 = {}
+    cpu3, joins3 = {}, {}
     for name, plan_fn, c in slice3:
-        cpu3[name] = block_result(run_query(plan_fn(), cats[c].blocks("cpu"))[0])
+        out, joins3[name] = join_probe_spy(
+            lambda: run_query(plan_fn(), cats[c].blocks("cpu"))[0])
+        cpu3[name] = block_result(out)
         if cpu3[name][0] != np3[name]:
             raise AssertionError(f"{name}: port CPU run != numpy\n{cpu3[name][0]}\n"
                                  f"{np3[name]}")
@@ -4807,23 +4997,28 @@ def _main(analytic_cpu, mesh_cpu) -> int:
     SA.LAUNCHES = DA.LAUNCHES = ST.LAUNCHES = 0
     fused_before = SF_.FUSE_STATS["count"]
     for name, plan_fn, c in slice3:
+        JP.LAUNCHES = 0
         out, summary = run_query(plan_fn(), gpu3[c])
         torch.cuda.synchronize()
         if summary.device != "cuda:0" or summary.retries:
             raise AssertionError(f"{name}: ran on {summary.device} with "
                                  f"{summary.retries} retries")
+        if JP.LAUNCHES != joins3[name]:
+            raise AssertionError(f"{name}: {JP.LAUNCHES} join_probe launches, the CPU "
+                                 f"run's dense joins predict {joins3[name]}")
         got = block_result(out)
         if got != cpu3[name]:
             raise AssertionError(f"{name}: cuda result != cpu result\n{got}\n{cpu3[name]}")
         if got[0] != np3[name]:
             raise AssertionError(f"{name}: cuda result != numpy")
-        print(f"{name} sf{SF} on cuda: {summary.result_rows} rows, bit-exact vs port "
-              f"CPU run and numpy")
+        print(f"{name} sf{SF} on cuda: {summary.result_rows} rows, join_probe launches "
+              f"{JP.LAUNCHES} (as predicted), bit-exact vs port CPU run and numpy")
         if name in ("q3", "q22"):
             print(f"  {name} rows: {got[0]}")
     if (SA.LAUNCHES or DA.LAUNCHES or ST.LAUNCHES
             or SF_.FUSE_STATS["count"] != fused_before):
-        raise AssertionError("q3/q10/q4/q22/topn reached a kernel or the fused path")
+        raise AssertionError("q3/q10/q4/q22/topn reached an aggregation kernel or the "
+                             "fused path")
     for name, plan_fn, c in slice3:
         plan, tables = plan_fn(), gpu3[c]
         q_ms = time_ms(lambda: run_query(plan, tables), WARM_RUNS)
@@ -4853,11 +5048,11 @@ def _main(analytic_cpu, mesh_cpu) -> int:
     del big
 
     # ---- 7. Q2-Q21 at SF1 on the eight-table catalog ---------------------------
-    cat8, gpu8, cpu8 = eight_table_phase(card)
+    cat8, gpu8, cpu8, joins8 = eight_table_phase(card)
 
     # ---- 8. spec-form Q4, Q8, Q12 and Q14 on the eight-table catalog ------------
-    spec_phase(card, ("q4", "q8", "q12", "q14"), cat8.blocks("cpu"), gpu8,
-               {"q8": cpu8["q8"], "q12": cpu8["q12"]})
+    spec_joins.update(spec_phase(card, ("q4", "q8", "q12", "q14"), cat8.blocks("cpu"), gpu8,
+                                 {"q8": cpu8["q8"], "q12": cpu8["q12"]}))
     del gpu8
 
     # ---- 9. the analytic plans at SF1, serialized, on both catalogs ---------------
@@ -4893,6 +5088,10 @@ def _main(analytic_cpu, mesh_cpu) -> int:
     judged = oracle_phase(card, SA, DA, ST)
     oracle_launches = {k: v["read"] for k, v in judged["launches"].items()}
 
+    join_main = {**{f"{k}_spec": v for k, v in spec_joins.items()}, **joins7, **joins3,
+                 **joins8}
+    if not sum(join_main.values()):
+        raise AssertionError("no main-path run launched join_probe")
     q1y = stream_y["q1"]
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "share_of_bound")
 
@@ -4963,6 +5162,20 @@ def _main(analytic_cpu, mesh_cpu) -> int:
                          **{k: ship["yardsticks"][k] for k in (
                              "ms", "plain_ms", "bound_ms", "library_ms")}}),
         tile,
+        # the unique join's dense probe (replaces no TPU kernel): launches
+        # read on the main path (each query's run_query on the card,
+        # counted from 0, equal to its CPU run's dense joins); timed at
+        # SSB's date, customer and part joins over 60,010,680 probe slots
+        {"name": "join_probe", "route": "cuda",
+         "source": "tiflash_tpu_torch/csrc/join_probe.cu",
+         "replaces": "none (the sorted probe: ops/merge.py probe_ranges_fast, then a take "
+                     "per column)",
+         "launches": sum(join_main.values()), "launches_by_query": join_main,
+         "max_abs_err": 0,
+         "bound_by": "bytes",
+         **{k: join_y["date"][k] for k in ("ms", "plain_ms", "bound_ms", "share_of_bound",
+                                           "dense_join_ms", "sorted_join_ms")},
+         "shapes": join_y},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -8,7 +8,8 @@ each answer, through a JSON round trip, is judged by
 ``portbench/check.py`` against ``portbench/reference/ssb_q*.py``: exact,
 in order where the plan orders.  One traced request shows the
 aggregation's ``agg.<method>`` span inside its ``op.Aggregation`` and
-the method's counters.
+the method's counters; a pass of the 13 probes its 36 dimensions on the
+joins' dense method.
 """
 
 import importlib
@@ -83,3 +84,16 @@ def test_a_traced_request_names_its_method(world):
             before.get(f"agg_calls_total_method_{method}", 0) + 1
         assert after[f"agg_rows_total_method_{method}"] == \
             before.get(f"agg_rows_total_method_{method}", 0) + rows
+
+
+def test_a_pass_probes_every_dimension_on_the_dense_method(world):
+    """Q1.x join one dimension, Q2.x and Q3.x three, Q4.x four: 36 unique
+    joins on single integer keys whose range stats give a dense span."""
+    service, _ = world
+    before = METRICS.dump()
+    for shape in SHAPES:
+        _served(service, shape)
+    after = METRICS.dump()
+    calls = {m: after[f"join_calls_total_method_{m}"] - before[f"join_calls_total_method_{m}"]
+             for m in ("dense", "sorted", "general")}
+    assert calls == {"dense": 36, "sorted": 0, "general": 0}

@@ -245,6 +245,83 @@ def test_a_mesh_run_has_attempts_and_no_op_spans(cat, spans):
     assert not [n for n in names if n.startswith("op.")]
 
 
+def _star_tables(n=4000, seed=11):
+    """An SSB-shaped star: a fact table with three foreign keys, and
+    three dimensions whose integer keys carry range stats (the catalog's
+    ``column_from_arrays``), each filtered; ``pair`` keys on two INT16
+    columns, which pack into one sorted key."""
+    import numpy as np
+
+    from tiflash_tpu_torch.storage.catalog import column_from_arrays
+
+    rng = np.random.default_rng(seed)
+    days = np.array([19920101 + 10000 * y + 100 * m + d for y in range(3)
+                     for m in range(12) for d in range(1, 29)], dtype=np.int32)
+
+    def block(cols, sel=None):
+        return Block.from_dict({k: column_from_arrays(v, t) for k, (v, t) in cols.items()},
+                               sel=sel)
+
+    return {
+        "fact": block({"f_date": (rng.choice(days, n), dt.INT32),
+                       "f_cust": (rng.integers(1, 301, n).astype(np.int32), dt.INT32),
+                       "f_part": (rng.integers(1, 801, n).astype(np.int32), dt.INT32),
+                       "f_a": (rng.integers(0, 9, n).astype(np.int16), dt.INT16),
+                       "f_b": (rng.integers(0, 9, n).astype(np.int16), dt.INT16),
+                       "f_rev": (rng.integers(0, 1000, n), dt.INT64)}),
+        "date": block({"d_datekey": (days, dt.INT32),
+                       "d_year": (days // 10000, dt.INT32)}),
+        "customer": block({"c_custkey": (np.arange(1, 301, dtype=np.int32), dt.INT32),
+                           "c_nation": (np.arange(300, dtype=np.int32) % 25, dt.INT32)},
+                          sel=torch.as_tensor(rng.random(300) < 0.4)),
+        "part": block({"p_partkey": (np.arange(1, 801, dtype=np.int32), dt.INT32),
+                       "p_brand": (np.arange(800, dtype=np.int32) % 40, dt.INT32)},
+                      sel=torch.as_tensor(rng.random(800) < 0.2)),
+        "pair": block({"q_a": (np.repeat(np.arange(9, dtype=np.int16), 9), dt.INT16),
+                       "q_b": (np.tile(np.arange(9, dtype=np.int16), 9), dt.INT16),
+                       "q_v": (np.arange(81), dt.INT64)}),
+    }
+
+
+def _star_plan(P):
+    def join(probe, table, pk, bk):
+        return P.Join(kind="inner", probe_keys=pk, build_keys=bk, probe=probe,
+                      build=P.TableScan(table), unique_build=True)
+
+    star = join(join(join(P.TableScan("fact"), "date", ["f_date"], ["d_datekey"]),
+                     "customer", ["f_cust"], ["c_custkey"]),
+                "part", ["f_part"], ["p_partkey"])
+    return join(star, "pair", ["f_a", "f_b"], ["q_a", "q_b"])
+
+
+def test_a_star_plan_records_its_joins_methods(spans):
+    """One ``join.dense`` span per dimension, each inside its
+    ``op.Join``, with the probe's and the build's capacities; the packed
+    two-column key takes ``join.sorted``; the method counters move by
+    the same calls and rows."""
+    from tiflash_tpu_torch.plan import nodes as P
+
+    tables = _star_tables()
+    before = METRICS.dump()
+    out, summary = run_query(_star_plan(P), tables)
+    assert summary.retries == 0 and out.to_pylists()["f_rev"]
+    got = tracing.drain()
+    by_id = {s["span_id"]: s for s in got}
+    joins = [s for s in got if s["name"].startswith("join.")]
+    assert [s["name"] for s in joins] == ["join.dense"] * 3 + ["join.sorted"]
+    assert all(by_id[s["parent_id"]]["name"] == "op.Join" for s in joins)
+    n = tables["fact"].capacity
+    assert [s["attrs"] for s in joins] == [
+        {"rows": n, "build": tables[t].capacity}
+        for t in ("date", "customer", "part", "pair")]
+    after = METRICS.dump()
+    for method, calls in (("dense", 3), ("sorted", 1), ("general", 0)):
+        assert after[f"join_calls_total_method_{method}"] == \
+            before[f"join_calls_total_method_{method}"] + calls
+        assert after[f"join_rows_total_method_{method}"] == \
+            before[f"join_rows_total_method_{method}"] + calls * n
+
+
 def test_pylists_bytes_on_a_block_with_dead_rows():
     n = 10
     sel = torch.zeros(n, dtype=torch.bool)

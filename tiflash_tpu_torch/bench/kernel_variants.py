@@ -1,4 +1,4 @@
-"""Time the design alternatives of the port's two CUDA kernels on one card.
+"""Time the design alternatives of the port's fixed CUDA kernels on one card.
 
     python3 -m tiflash_tpu_torch.bench.kernel_variants
 
@@ -22,7 +22,11 @@ timed there:
   share a slot sum their values with ``__match_any_sync`` and
   ``__reduce_add_sync``, and one of them adds the sum), each at
   ``MIN_BLOCKS_PER_SM`` 1, 2, 4 and 8, which set the accumulator copies
-  per block.
+  per block;
+- join_probe at SSB's date, customer and part joins over a
+  60,010,680-slot probe (``chip_smoke.ssb_join_inputs``): ``base`` (as
+  committed: a matched flag stored only where a load finds it 0) and
+  ``store_every_flag``, each at ``BLOCKS_PER_SM`` 4, 8 and 16.
 
 CUDA events, median of 20, the L2 flushed by a read before each run;
 every configuration is timed twice, the list forward and then backward,
@@ -40,6 +44,7 @@ import sys
 SKEW_SLOT = 7
 SKEW_SHARE = 0.9
 BLOCKS_PER_SM = (1, 2, 4, 8)
+JOIN_BLOCKS_PER_SM = (4, 8, 16)
 
 _U64_ADD = """  unsigned* w = reinterpret_cast<unsigned*>(dst);
   const unsigned lo = (unsigned)v;
@@ -83,6 +88,13 @@ DIRECT_VARIANTS = {
       }
     }
 """)],
+}
+
+
+JOIN_VARIANTS = {
+    "base": [],
+    "store_every_flag": [(" && !p.flags[pos[r]]) p.flags[pos[r]] = 1;",
+                          ") p.flags[pos[r]] = 1;")],
 }
 
 
@@ -140,7 +152,8 @@ def main() -> int:
     from tiflash_tpu_torch.bench.compare_trees import smoke_helpers
     from tiflash_tpu_torch.bench.tpch_queries import q1_plan, q6_plan, q7_nation_pairs_plan
     from tiflash_tpu_torch.ops import tile_program as TP
-    from tiflash_tpu_torch.ops.cuda import build, direct_agg as DA, stream_agg as SA
+    from tiflash_tpu_torch.ops.cuda import build, direct_agg as DA, join_probe as JP
+    from tiflash_tpu_torch.ops.cuda import stream_agg as SA
     from tiflash_tpu_torch.ops.cuda import stream_tile as ST
     from tiflash_tpu_torch.runtime.executor import run_query
     from tiflash_tpu_torch.storage.tpch import generate_tpch
@@ -152,7 +165,8 @@ def main() -> int:
     card = smoke.card_line()
     print(card)
     jobs = {"stream_agg": build_variants(build, "stream_agg", STREAM_VARIANTS),
-            "direct_agg": build_variants(build, "direct_agg", DIRECT_VARIANTS)}
+            "direct_agg": build_variants(build, "direct_agg", DIRECT_VARIANTS),
+            "join_probe": build_variants(build, "join_probe", JOIN_VARIANTS)}
     libs = {k: finish(j) for k, j in jobs.items()}
 
     # the queries' own arguments, captured through the committed kernels
@@ -176,6 +190,7 @@ def main() -> int:
     direct_in = {"q7_pairs": (slots, vals, n_slots),
                  "skew": (torch.where(hot, SKEW_SLOT, slots).to(torch.int32), vals, n_slots)}
     print(f"skew: {int(hot.sum())} of {int(live.sum())} live rows in slot {SKEW_SLOT}")
+    join_in = {k: smoke.join_probe_args(*v) for k, v in smoke.ssb_join_inputs().items()}
 
     flush = smoke.L2Flush()
     results = []
@@ -204,21 +219,40 @@ def main() -> int:
         return smoke.time_ms(lambda: DA.group_sums(s, v, n, zeros((n, len(v) + 1))),
                              smoke.KERNEL_REPS, flush)
 
+    def join_case(var, shape, bps):
+        args = join_in[shape]
+        use_library(build, JP, libs["join_probe"][var])
+        JP.BLOCKS_PER_SM = bps
+        got, want = JP.join_probe(*args), JP.join_probe_plain(*args)
+        pairs = [(got[0], want[0]), (got[2], want[2])] + [
+            (a, b) for gc, wc in zip(got[3], want[3]) for a, b in zip(gc, wc)]
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"join_probe {var} != plain at {shape}")
+        del got, want, pairs
+        return smoke.time_ms(lambda: JP.join_probe(*args), smoke.KERNEL_REPS, flush)
+
     configs = [("stream_agg", var, q, None) for q in stream_in for var in STREAM_VARIANTS]
     configs += [("direct_agg", var, dom, mb) for dom in direct_in
                 for var in DIRECT_VARIANTS for mb in BLOCKS_PER_SM]
-    mb0 = DA.MIN_BLOCKS_PER_SM
+    configs += [("join_probe", var, shape, bps) for shape in join_in
+                for var in JOIN_VARIANTS for bps in JOIN_BLOCKS_PER_SM]
+    mb0, bps0 = DA.MIN_BLOCKS_PER_SM, JP.BLOCKS_PER_SM
+    cases = {"stream_agg": lambda var, dom, mb: stream_case(var, dom),
+             "direct_agg": direct_case, "join_probe": join_case}
     best = {}
     for cfg in configs + configs[::-1]:
         kernel, var, dom, mb = cfg
-        ms = stream_case(var, dom) if kernel == "stream_agg" else direct_case(var, dom, mb)
+        ms = cases[kernel](var, dom, mb)
         best[cfg] = min(ms, best.get(cfg, ms))
-    DA.MIN_BLOCKS_PER_SM = mb0
+    DA.MIN_BLOCKS_PER_SM, JP.BLOCKS_PER_SM = mb0, bps0
     for cfg in configs:
         kernel, var, dom, mb = cfg
         row = {"kernel": kernel, "variant": var, "input": dom, "ms": best[cfg]}
         where = ""
-        if mb is not None:
+        if kernel == "join_probe":
+            row.update(blocks_per_sm=mb)
+            where = f" BLOCKS_PER_SM={mb}"
+        elif mb is not None:
             saved, DA.MIN_BLOCKS_PER_SM = DA.MIN_BLOCKS_PER_SM, mb
             (plan,) = DA.launch_plan(direct_in[dom][2], len(direct_in[dom][1]) + 1)
             DA.MIN_BLOCKS_PER_SM = saved

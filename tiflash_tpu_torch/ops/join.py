@@ -39,6 +39,20 @@ Ported here:
 - ``cross_join``: every live probe row with every live build row, by
   the same prefix-sum expansion, with a required-capacity overflow.
 
+The port adds direct addressing to the unique path (``join_method``):
+where the one integer or DATE build key's range stats prove a span of at
+most ``DENSE_SPAN_LIMIT`` values and ``DENSE_SPAN_PER_ROW`` per build
+row (plus ``DENSE_SPAN_SLACK``), the build also gets a position table,
+``table[key - lo]`` = the first sorted position of the key (the
+``lo`` that ``searchsorted(left)`` gives), and ``probe_join_dense``
+looks each probe key up in it and gathers the 1-D build columns in one
+pass (``ops/cuda/join_probe.py``).  Every output tensor equals the
+sorted path's, dead slots included.  Each ``hash_join`` records a span
+``join.<method>`` (``dense``, ``sorted`` or ``general``; attributes
+``rows`` and ``build``, the two capacities) and the counters
+``join_calls_total_method_<method>`` and
+``join_rows_total_method_<method>``.
+
 NULL join keys never match.
 """
 
@@ -51,6 +65,8 @@ import torch
 
 from ..core.block import Block, Column
 from ..core.dtypes import DataType, TypeKind
+from ..runtime import tracing
+from ..runtime.metrics import METRICS
 
 _LEFT = ("left", "left_outer")
 _SEMI_COLUMN = ("left_outer_semi", "left_outer_semi_null_aware")
@@ -179,6 +195,10 @@ class JoinBuild:
     sorted_sel: torch.Tensor    # selected flags in key order
     num_live: torch.Tensor      # 0-d int32: matchable rows (a prefix)
     unique: torch.Tensor        # 0-d bool: no duplicate live keys
+    # the dense method's position table over the keys [table_lo,
+    # table_lo + len(table)): a key's first sorted position, or -1
+    table_lo: Optional[int] = None
+    table: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
@@ -220,6 +240,69 @@ def build_join(build_block: Block, build_keys: torch.Tensor,
     dup = (skeys[1:] == skeys[:-1]) & (pos < num_live)
     return JoinBuild(skeys, build_block, perm.to(torch.int32), sorted_sel,
                      num_live, ~torch.any(dup))
+
+
+# the dense method's caps on the build key's span (hi - lo + 1): a table
+# of at most 2^26 int32 entries (256 MB), and at most 16 entries per
+# build row past the first 2^16
+DENSE_SPAN_LIMIT = 1 << 26
+DENSE_SPAN_PER_ROW = 16
+DENSE_SPAN_SLACK = 1 << 16
+_DENSE_KEY_KINDS = (TypeKind.INT8, TypeKind.INT16, TypeKind.INT32, TypeKind.INT64,
+                    TypeKind.DATE)
+# unflagged build positions scatter into this many trash entries past
+# the table, by position, so they never pile onto one address
+_TRASH_LANES = 1024
+
+
+def dense_key_span(probe_cols: Sequence[Column],
+                   build_cols: Sequence[Column]) -> Optional[Tuple[int, int]]:
+    """(lo, span) of the build key when a unique probe can address a
+    position table: one integer or DATE key a side, 1-D, the build key's
+    range stats ``(lo, hi)`` giving ``span = hi - lo + 1`` within the
+    caps.  None otherwise.  Host values only: nothing syncs."""
+    if len(probe_cols) != 1 or len(build_cols) != 1:
+        return None
+    pc, bc = probe_cols[0], build_cols[0]
+    if (pc.dtype.kind not in _DENSE_KEY_KINDS or bc.dtype.kind not in _DENSE_KEY_KINDS
+            or pc.data.dim() != 1 or bc.data.dim() != 1
+            or bc.stats is None or bc.capacity == 0):
+        return None
+    lo, hi = bc.stats
+    span = hi - lo + 1
+    cap = min(DENSE_SPAN_LIMIT, DENSE_SPAN_PER_ROW * bc.capacity + DENSE_SPAN_SLACK)
+    return (lo, span) if 1 <= span <= cap else None
+
+
+def join_method(probe_cols: Sequence[Column], build_cols: Sequence[Column],
+                output_capacity: Optional[int]) -> str:
+    """``dense`` (the unique path over a position table), ``sorted`` (the
+    unique path's range searches) or ``general`` (the N:M expansion,
+    hashed keys included)."""
+    if output_capacity is not None or join_keys_need_verify(probe_cols, build_cols):
+        return "general"
+    return "dense" if dense_key_span(probe_cols, build_cols) is not None else "sorted"
+
+
+def build_join_dense(build_block: Block, key: Column, lo: int, span: int) -> JoinBuild:
+    """``build_join`` on one integer key, plus the position table of its
+    ``span`` keys from ``lo``: each live key's first sorted position,
+    which is the ``lo`` that ``searchsorted(left)`` gives.  A live key
+    outside the span (no column's stats allow one) is left out."""
+    null = (torch.zeros(key.capacity, dtype=torch.bool, device=key.data.device)
+            if key.validity is None else ~key.validity)
+    build = build_join(build_block, key.data.to(torch.int64), null)
+    skeys = build.sorted_keys
+    n = build.capacity
+    pos = torch.arange(n, dtype=torch.int64, device=skeys.device)
+    first = torch.ones(n, dtype=torch.bool, device=skeys.device)
+    first[1:] = skeys[1:] != skeys[:-1]
+    # the dead rows' sentinel keys may wrap here; they are not kept
+    off = skeys - lo
+    keep = first & (pos < build.num_live) & (off >= 0) & (off < span)
+    table = torch.full((span + _TRASH_LANES,), -1, dtype=torch.int32, device=skeys.device)
+    table.scatter_(0, torch.where(keep, off, span + pos % _TRASH_LANES), pos.to(torch.int32))
+    return dataclasses.replace(build, table_lo=lo, table=table[:span])
 
 
 # ---------------------------------------------------------------------------
@@ -315,6 +398,49 @@ def probe_join_unique(build: JoinBuild, probe_block: Block,
     # inner keeps the matched rows; the outer kinds every selected probe row
     joined = joined.with_sel(matched if kind == "inner" else probe_block.sel_mask())
     return joined, _matched_flags(build, bidx)
+
+
+def probe_join_dense(build: JoinBuild, probe_block: Block, key: Column,
+                     kind: str = "inner") -> Tuple[Block, torch.Tensor]:
+    """``probe_join_unique`` through the build's position table: one
+    lookup per probe row and the 1-D build columns gathered in the same
+    pass (``ops/cuda/join_probe.py``); 2-D columns through
+    ``take_sorted`` at the positions it gives.  The same outputs, tensor
+    for tensor, as the range searches."""
+    from .cuda.join_probe import join_probe
+
+    if kind not in ("inner", "right_as_probe_outer") + _LEFT + _NO_EXPANSION:
+        raise NotImplementedError(f"join kind {kind}")
+    payload = () if kind in _NO_EXPANSION else build.block.columns
+    flat = [c for c in payload if c.data.dim() == 1]
+    wide = [n for n, c in zip(build.block.names, payload) if c.data.dim() != 1]
+    keys = key.data if key.data.dtype in (torch.int32, torch.int64) \
+        else key.data.to(torch.int32)
+    matched, bidx, flags, outs = join_probe(
+        keys.contiguous(), key.validity, probe_block.sel, build.table, build.table_lo,
+        build.perm, build.block.capacity <= probe_block.capacity,
+        [(c.data.contiguous(), None if c.validity is None else c.validity.contiguous())
+         for c in flat], want_bidx=bool(wide))
+    if kind in _NO_EXPANSION:
+        probe_null = None
+        if kind in ("anti_null_aware", "left_outer_semi_null_aware"):
+            probe_null = (torch.zeros_like(matched) if key.validity is None
+                          else ~key.validity)
+        return _no_expansion(kind, build, probe_block, matched, probe_null), flags
+    rows_wide = (dataclasses.replace(build, block=build.block.select(wide))
+                 .take_sorted(bidx, fill_invalid=True) if wide else None)
+    gathered = iter(outs)
+    cols = []
+    for name, c in zip(build.block.names, build.block.columns):
+        if c.data.dim() == 1:
+            data, valid = next(gathered)
+            cols.append(c.with_data(data, valid, stats=c.stats))
+        else:
+            cols.append(rows_wide[name])
+    joined = _merge_blocks(probe_block, Block(names=build.block.names, columns=tuple(cols)))
+    # inner keeps the matched rows; the outer kinds every selected probe row
+    joined = joined.with_sel(matched if kind == "inner" else probe_block.sel_mask())
+    return joined, flags
 
 
 def probe_join_general(
@@ -465,7 +591,6 @@ def hash_join(
     Returns (joined block, {"build", "matched_flags", "overflow"})."""
     pk = [probe_block[k] for k in probe_key_names]
     bk = [build_block[k] for k in build_key_names]
-    pkeys, pnull, bkeys, bnull = normalize_join_keys(pk, bk)
     needs_verify = join_keys_need_verify(pk, bk)
     payload_block = build_block
     if build_payload is not None:
@@ -478,30 +603,42 @@ def hash_join(
         payload_block = Block(names=tuple(keep),
                               columns=tuple(build_block[n] for n in keep),
                               sel=build_block.sel)
-    build = build_join(payload_block, bkeys, bnull)
-    if needs_verify:
-        # hashed keys: a collision makes the unique path unsound and the
-        # candidate ranges approximate, so always expand and re-verify
-        if kind not in ("inner", "semi", "anti"):
-            raise NotImplementedError(
-                f"join keys wider than 63 bits not supported for kind {kind!r}")
-        joined, bflags, overflow = probe_join_general(
-            build, probe_block, pkeys, pnull, kind,
-            output_capacity or probe_block.capacity,
-            verify=(list(probe_key_names), list(build_key_names)))
-    elif output_capacity is None:
-        joined, bflags = probe_join_unique(build, probe_block, pkeys, pnull, kind)
-        # duplicate live build keys: the fast path kept only the first
-        # match of each probe row; say so instead of dropping rows
-        zero = torch.zeros((), dtype=torch.int64, device=pkeys.device)
-        overflow = zero if kind not in ("inner", "right_as_probe_outer") + _LEFT \
-            else torch.where(
-            build.unique, zero,
-            torch.full((), probe_block.capacity + 1, dtype=torch.int64,
-                       device=pkeys.device))
-    else:
-        joined, bflags, overflow = probe_join_general(
-            build, probe_block, pkeys, pnull, kind, output_capacity)
+    method = join_method(pk, bk, output_capacity)
+    METRICS.counter(f"join_calls_total_method_{method}").inc()
+    METRICS.counter(f"join_rows_total_method_{method}").inc(probe_block.capacity)
+    with tracing.span("join." + method, rows=probe_block.capacity,
+                      build=build_block.capacity):
+        if method == "dense":
+            build = build_join_dense(payload_block, bk[0], *dense_key_span(pk, bk))
+            joined, bflags = probe_join_dense(build, probe_block, pk[0], kind)
+        else:
+            pkeys, pnull, bkeys, bnull = normalize_join_keys(pk, bk)
+            build = build_join(payload_block, bkeys, bnull)
+            if method == "sorted":
+                joined, bflags = probe_join_unique(build, probe_block, pkeys, pnull, kind)
+            elif needs_verify:
+                # hashed keys: a collision makes the unique path unsound and
+                # the candidate ranges approximate, so always expand and
+                # re-verify
+                if kind not in ("inner", "semi", "anti"):
+                    raise NotImplementedError(
+                        f"join keys wider than 63 bits not supported for kind {kind!r}")
+                joined, bflags, overflow = probe_join_general(
+                    build, probe_block, pkeys, pnull, kind,
+                    output_capacity or probe_block.capacity,
+                    verify=(list(probe_key_names), list(build_key_names)))
+            else:
+                joined, bflags, overflow = probe_join_general(
+                    build, probe_block, pkeys, pnull, kind, output_capacity)
+        if method != "general":
+            # duplicate live build keys: the unique path kept only the first
+            # match of each probe row; say so instead of dropping rows
+            dev = probe_block.device
+            zero = torch.zeros((), dtype=torch.int64, device=dev)
+            overflow = zero if kind not in ("inner", "right_as_probe_outer") + _LEFT \
+                else torch.where(
+                build.unique, zero,
+                torch.full((), probe_block.capacity + 1, dtype=torch.int64, device=dev))
     return joined, {"build": build, "matched_flags": bflags, "overflow": overflow}
 
 
@@ -532,7 +669,8 @@ def hash_join_with_tail(
 
 
 __all__ = [
-    "JoinBuild", "build_join", "probe_join_unique", "probe_join_general",
+    "JoinBuild", "build_join", "build_join_dense", "probe_join_unique",
+    "probe_join_dense", "probe_join_general", "dense_key_span", "join_method",
     "cross_join", "hash_join", "hash_join_with_tail", "normalize_join_keys",
     "scan_non_matched",
     "join_keys_need_verify",

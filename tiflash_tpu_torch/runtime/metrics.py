@@ -80,6 +80,9 @@ METRICS = _Registry()
 #   aggregation      the port adds agg_ranged_calls_total (grouped calls
 #                    whose dense domain rests on a key's range stats,
 #                    ops/aggregate.py; beside agg_calls_total_method_*)
+#   joins            the port adds join_calls_total_method_<method> and
+#                    join_rows_total_method_<method> (probe rows), for
+#                    the methods dense, sorted and general (ops/join.py)
 for _n in (
     "queries_total",
     "query_seconds_total",
@@ -110,6 +113,8 @@ for _n in (
     "admission_waits_total",
     "admission_wait_seconds_total",
     "agg_ranged_calls_total",
+    *(f"join_{what}_total_method_{method}" for what in ("calls", "rows")
+      for method in ("dense", "sorted", "general")),
 ):
     METRICS.counter(_n)
 
